@@ -1,0 +1,49 @@
+"""Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
+the card check, row cosine, and one seeded weight set carried from the JAX
+model into the port through ``state_dict_from_jax_params``."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+def cuda_device() -> torch.device:
+    """The card, or skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel tests run on the card)")
+    return torch.device("cuda")
+
+
+def min_row_cosine(a, b) -> float:
+    """Smallest cosine similarity between matching rows (last axis)."""
+    a = np.asarray(a, np.float64).reshape(-1, np.shape(a)[-1])
+    b = np.asarray(b, np.float64).reshape(-1, np.shape(b)[-1])
+    num = (a * b).sum(-1)
+    den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)
+    return float(np.min(num / np.maximum(den, 1e-30)))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def jax_and_port_whisper(cfg, dtype: str, seed: int = 0, scan_layers: bool = False):
+    """(jax_model, jax_params, port_model) with identical weights: the JAX
+    model's seeded init, converted by state_dict_from_jax_params.
+    ``dtype`` is "float32" or "bfloat16" for both sides."""
+    import jax
+    import jax.numpy as jnp
+
+    from wealy_tpu.models.whisper.model import Whisper as JWhisper
+    from wealy_tpu_torch.models.whisper.convert import state_dict_from_jax_params
+    from wealy_tpu_torch.models.whisper.model import Whisper
+
+    jmodel = JWhisper(cfg, dtype=getattr(jnp, dtype), scan_layers=scan_layers)
+    mel0 = jnp.zeros((1, cfg.n_mels, 2 * cfg.n_audio_ctx), jnp.float32)
+    params = jmodel.init(jax.random.PRNGKey(seed), mel0, jnp.zeros((1, 4), jnp.int32))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    port = Whisper(cfg, dtype=getattr(torch, dtype))
+    port.load_state_dict(state_dict_from_jax_params(params))
+    return jmodel, params, port.eval()

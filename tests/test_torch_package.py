@@ -1,0 +1,144 @@
+"""Package-level checks of the PyTorch port (wealy_tpu_torch): it imports no
+JAX, its kernel wrappers count launches only when they launch, its build
+raises without nvcc, and chip_smoke.py refuses to run without a card."""
+
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import wealy_tpu_torch
+from wealy_tpu_torch import _build
+from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+from wealy_tpu_torch.audio.mel import N_SAMPLES
+from wealy_tpu_torch.ops.flash_attention import flash_mha
+from wealy_tpu_torch.ops.fused_mlp import fused_mlp
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "wealy_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(wealy_tpu_torch.__path__, "wealy_tpu_torch.")
+    )
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")])
+    return env
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "wealy_tpu_torch.models.whisper.extract" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))"
+        " or m == 'wealy_tpu' or m.startswith('wealy_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize(
+    "pattern",
+    [
+        r"^\s*(import jax|from jax)",
+        r"^\s*(import wealy_tpu\b|from wealy_tpu(\.| ))",
+        r"scaled_dot_product_attention",
+        r"torch\.compile",
+        r"^\s*try:",  # no try around a build or a launch: failures raise
+    ],
+)
+def test_forbidden_patterns_absent(pattern):
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [
+        f"{p.relative_to(REPO)}:{i}"
+        for p in files
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if re.search(pattern, line)
+    ]
+    assert not hits, hits
+
+
+def test_every_kernel_has_a_source_note():
+    for name in ("log_mel.cu", "flash_attention.cu", "fused_mlp.cu"):
+        head = (PKG / "csrc" / name).read_text()[:3000]
+        assert "Replaces the TPU kernel wealy_tpu/" in head, name
+        assert "What bounds it on an H100" in head, name
+
+
+def test_cpu_path_counts_no_launches():
+    counters = (log_mel_spectrogram_fused, flash_mha, fused_mlp)
+    before = [f.launches for f in counters]
+    rng = np.random.default_rng(0)
+    log_mel_spectrogram_fused(torch.from_numpy(rng.normal(size=N_SAMPLES).astype(np.float32)))
+    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 64)).astype(np.float32)).bfloat16()
+    flash_mha(q, q, q, 0.125)
+    x = torch.zeros(3, 64, dtype=torch.bfloat16)
+    w = torch.zeros(256, 64, dtype=torch.bfloat16)
+    fused_mlp(x, w, torch.zeros(256), w.T.contiguous(), torch.zeros(64))
+    assert [f.launches for f in counters] == before
+
+
+def test_non_cuda_device_raises():
+    before = (flash_mha.launches, log_mel_spectrogram_fused.launches)
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="flash_mha"):
+        flash_mha(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="log_mel"):
+        log_mel_spectrogram_fused(torch.zeros(N_SAMPLES, device="meta"))
+    assert (flash_mha.launches, log_mel_spectrogram_fused.launches) == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_build_flags_and_source_hash():
+    assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
+    names = {p.name for p in _build.sources()}
+    assert {"log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "common.cuh"} <= names
+    assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd", "wealy_fused_mlp"}
+    key = _build._source_hash()
+    assert len(key) == 16 and key == _build._source_hash()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_card(tmp_path, alone):
+    """Without CUDA (and, alone, without the rest of the repo) the script
+    exits nonzero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    cwd = REPO
+    env = dict(os.environ)
+    if alone:
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+        env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,132 @@
+"""Build-on-first-use for the hand-written CUDA kernels (``csrc/*.cu``).
+
+The first call to :func:`library` compiles every ``csrc/*.cu`` into one
+shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o libwealy_kernels.so csrc/*.cu
+
+into ``csrc/_build/<hash>/``, where ``<hash>`` covers the sources and the
+flags, and loads it with ``ctypes``. Pointers and the CUDA stream cross the
+boundary as ``c_void_p``; every entry point returns ``cudaGetLastError()``
+after its launch and :func:`check` raises when that is not 0. A missing
+``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_ROOT = CSRC / "_build"
+LIB_NAME = "libwealy_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills, kept in build.log
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (all return int = cudaError_t)
+SIGNATURES = {
+    # audio, wcos, wsin, melw, out, batch, n_samples, n_frames, n_mels, stream
+    "wealy_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, batch, tq, tk, heads, head_dim, scale, stream
+    "wealy_flash_mha_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # x, w1, b1, w2, b2, hidden, out, rows, d_model, d_ff, stream
+    "wealy_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of the nvcc run in this process (None: cached)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be built"
+    )
+
+
+def build() -> Path:
+    """Compile the kernels unless a build of the current sources exists;
+    returns the library path."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.wealy_error_string.argtypes = [ctypes.c_int]
+            lib.wealy_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().wealy_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream(device) -> int:
+    """Handle of PyTorch's current CUDA stream on ``device``: kernels launch
+    there and do not synchronise."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
