@@ -4,13 +4,20 @@ NVIDIA GPU.
 
     python3 chip_profile.py [--out profile_out]
 
-Two pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
+Four pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
 
 - whisper-tiny mel + bf16 encoder + mean pool at B=64, three batches;
 - large-v3-turbo ``extract_song`` over one 65 s song (3 chunks, x_concat and
   hs_last_seq, max_len 64), seeded random weights. Before the trace, the
   untraced host-clock times of the song's mel + encoder part, its decode
-  part and the whole call are printed, three runs each.
+  part and the whole call are printed, three runs each;
+- ``evaluate`` (monolithic, bpwr) of chip_smoke.py's synthetic project: 128
+  turbo-width versions through the 512-wide head. Before the trace, the
+  untraced host-clock time of each stage (embedding load, overlapping
+  collate, head, chunk-set scoring and ranks) is printed;
+- chunk-set bpwr ranking (``streaming_relevant_ranks``, resident corpus) at
+  SHS100K-TEST scale, 10,547 versions with smax 18, for the first 444
+  queries (two query slabs).
 
 For each trace it prints the host wall of the traced region, the device busy
 time (the union of the intervals of kernels, copies and sets), the idle
@@ -25,6 +32,7 @@ import collections
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -145,8 +153,87 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report("turbo_extract_song_65s", prof, wall, out)
+    del model
+    torch.backends.cudnn.allow_tf32 = False  # the evaluate head's convolutions in f32
+    with tempfile.TemporaryDirectory(prefix="wealy_profile_") as tmp:
+        profile_evaluate(tmp, dev, activities, out)
+    profile_ranking(dev, activities, out)
     print(smi, flush=True)
     return 0
+
+
+def profile_evaluate(tmp: str, dev, activities, out: Path) -> None:
+    from chip_smoke import write_project
+    from wealy_tpu_torch.cli.main import _pad_chunk_sets, build_parser, evaluate, load_head
+    from wealy_tpu_torch.data.chunking import collate_overlapping
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.eval.retrieval import evaluate_retrieval, regroup_chunks, slabbed_apply
+    from wealy_tpu_torch.train.config import Config
+
+    cpath, _ = write_project(tmp, dev)
+    args = ["evaluate", "--config", cpath, "--split", "test", "--redux", "bpwr"]
+    evaluate(build_parser().parse_args(args), device=dev)  # warm-up: cuDNN plans, caches
+    config = Config.from_file(cpath)
+    ds = EmbeddingDataset(config, "test")
+    versions = list(ds.sampler.versions)
+    head = load_head(config, 1280, None, dev)
+    t = {"load": 0.0, "collate": 0.0, "head": 0.0}
+    sets_all, masks_all, labels, ids = [], [], [], []
+    t_all = time.perf_counter()
+    for g0 in range(0, len(versions), 64):
+        t0 = time.perf_counter()
+        items = [(ds.sampler.labels[ds.sampler.clique_of[v]],
+                  [(int(ds.metadata.info[v]["id"]), ds.load_embedding(v))])
+                 for v in versions[g0 : g0 + 64]]
+        t1 = time.perf_counter()
+        batch = collate_overlapping(items, chunk_size=1000, overlap=0.9)
+        t2 = time.perf_counter()
+        z = slabbed_apply(head, batch.embeddings, batch.masks, slab_size=256, device=dev)
+        t3 = time.perf_counter()
+        sets, mask, bidx, _ = regroup_chunks(z, batch.chunk_info, batch.chunk_valid)
+        sets_all.append(sets)
+        masks_all.append(mask)
+        labels.extend(items[i][0] for i in bidx)
+        ids.extend(items[i][1][0][0] for i in bidx)
+        t["load"] += t1 - t0
+        t["collate"] += t2 - t1
+        t["head"] += t3 - t2
+    t0 = time.perf_counter()
+    sets, mask = _pad_chunk_sets(sets_all, masks_all, len(labels))
+    evaluate_retrieval(sets, mask, np.asarray(labels), version_ids=np.asarray(ids), device=dev)
+    torch.cuda.synchronize()
+    t["score+rank"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_all
+    print(f"[evaluate untraced] {len(versions)} versions, {total:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s ({100 * v / total:.1f}%)" for k, v in t.items()),
+          flush=True)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        evaluate(build_parser().parse_args(args), device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report("evaluate_128_turbo", prof, wall, out)
+
+
+def profile_ranking(dev, activities, out: Path, n: int = 10547, smax: int = 18,
+                    zdim: int = 512, n_queries: int = 444) -> None:
+    from wealy_tpu_torch.parallel.similarity import streaming_relevant_ranks
+
+    rng = np.random.default_rng(11)
+    labels = np.arange(n) // 6
+    sets = rng.normal(size=(n, smax, zdim)).astype(np.float32)
+    mask = np.arange(smax)[None, :] < rng.integers(1, smax + 1, n)[:, None]
+    kw = dict(mode="cos", redux="bpwr", query_mask=mask[:n_queries], corpus_mask=mask,
+              block_size=222, query_block=222, device=dev)
+    streaming_relevant_ranks(sets[:222], sets, labels[:222], labels, **{
+        **kw, "query_mask": mask[:222]})  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        streaming_relevant_ranks(sets[:n_queries], sets, labels[:n_queries], labels, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(f"ranking_{n_queries}q_x_{n}", prof, wall, out)
 
 
 if __name__ == "__main__":

@@ -4,27 +4,35 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
-its plain PyTorch version at the shapes the extraction path gives it, drives
+its plain PyTorch version at the shapes its path gives it, drives
 extract_song at whisper-tiny (card against CPU) and at large-v3-turbo full
-width (random weights from a seed), and times the whisper-tiny embedding
-pipeline. Every phase prints one line. At the end come the card's name and
-power limit, then the kernel summary as JSON, then the result as JSON on the
-last line. Any failed check exits nonzero without the result line. Refuses
-to run without CUDA.
+width (random weights from a seed), times the whisper-tiny embedding
+pipeline, drives ``python -m wealy_tpu_torch.cli.main evaluate`` on a
+synthetic project at full width (turbo ``hs_last_seq``, 1280-dim, through
+the 512-wide head; monolithic and streamed; card against CPU on a subset),
+and times chunk-set bpwr ranking at SHS100K-TEST scale. Every phase prints
+one line. At the end come the card's name and power limit, then the kernel
+summary as JSON, then the result as JSON on the last line. Any failed check
+exits nonzero without the result line. Refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 FAILURES: list[str] = []
+# the kernels of the extraction path (phases 6-7); K4 runs on the evaluate path (phase 10)
+EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp")
 
 
 def check(ok: bool, what: str) -> bool:
@@ -77,6 +85,7 @@ def main() -> int:
     from wealy_tpu_torch.ops import bf16_agreement
     from wealy_tpu_torch.ops.flash_attention import _reference_mha, flash_mha
     from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
+    from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block, bpwr_block_redux
 
     # plain versions and decode logits are f32 products: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,8 +170,56 @@ def main() -> int:
                 f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms")
             record("fused_mlp", "wealy_tpu_torch/csrc/fused_mlp.cu",
                    "wealy_tpu/ops/fused_mlp.py:44", err, ms, plain, f"N={N} D={D}")
+    # 9. K4 bpwr against its plain version (bit-equal by design; bound 1e-6)
+    def bpwr_case(shape, view=False, p_invalid=0.2, ties=False):
+        Q, B, s1, s2 = shape
+        if view:  # the rank passes' view of a (Q*s1, B*s2) cosine-distance matrix
+            d = (torch.rand(Q * s1, B * s2, device=dev, generator=gen) * 2).reshape(
+                Q, s1, B, s2).permute(0, 2, 1, 3)
+        else:
+            d = torch.rand(Q, B, s1, s2, device=dev, generator=gen) * 2
+        if ties:
+            d = torch.round(d * 4) / 4
+        qv = torch.rand(Q, s1, device=dev, generator=gen) > p_invalid
+        cv = torch.rand(B, s2, device=dev, generator=gen) > p_invalid
+        qv[:, 0] = True
+        cv[:, 0] = True
+        qv[0] = False  # a query with no valid chunk: its pairs are fully excluded
+        cv[-1] = False
+        return d, qv, cv
+
+    for label, shape, kw in (
+        ("headline", (222, 222, 18, 18), dict(view=True)),
+        ("s1>s2", (64, 96, 24, 10), {}),
+        ("s=1", (512, 512, 1, 1), {}),
+        ("40x40", (32, 48, 40, 40), {}),
+        ("largest", (4, 8, 128, 128), {}),
+        ("masked rows", (16, 32, 12, 12), dict(p_invalid=0.5)),
+        ("exact ties", (8, 8, 6, 6), dict(ties=True)),
+    ):
+        d, qv, cv = bpwr_case(shape, **kw)
+        got = bpwr_block_redux(d, qv, cv)
+        again = bpwr_block_redux(d, qv, cv)
+        want = _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12)
+        err = (got - want).abs().max().item()
+        same = torch.equal(got, again)
+        zero_rows = bool((got[0] == 0).all()) and bool((got[:, -1] == 0).all())
+        ok = check(err <= 1e-6 and same and zero_rows and bool(torch.isfinite(got).all()),
+                   f"K4 {label} {shape}: max abs {err:.3g}, repeat bit-equal {same}, "
+                   f"excluded pairs zero {zero_rows}")
+        ms = plain = None  # timed at the headline shape, which record() keeps
+        if label == "headline":
+            ms = cuda_ms(lambda: bpwr_block_redux(d, qv, cv), 20)
+            plain = cuda_ms(lambda: _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12), 5)
+        say(f"[9 K4 bpwr_redux] {label} Q,B,s1,s2={shape}: max_abs_err {err:.3g}, bit-equal "
+            f"{bool(err == 0)}, repeat bit-equal {same} {'ok' if ok else 'FAIL'}"
+            + (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms" if ms is not None else ""))
+        record("bpwr_redux", "wealy_tpu_torch/csrc/bpwr_redux.cu",
+               "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}")
+    del d, qv, cv
+
     counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
-                "fused_mlp": fused_mlp}
+                "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux}
 
     def reset_counts():
         for fn in counters.values():
@@ -203,7 +260,7 @@ def main() -> int:
     hcos_prefix = min_row_cos(dc["hidden"][0, :limit].cpu(), dp["hidden"][0, :limit])
     check(hcos_prompt >= 0.999, f"tiny decoder prompt states cosine {hcos_prompt:.6f}")
     check(hcos_prefix >= 0.999, f"tiny decoder common-prefix states cosine {hcos_prefix:.6f}")
-    check(all(v > 0 for v in tiny_counts.values()), f"tiny slice launches {tiny_counts}")
+    check(all(tiny_counts[k] > 0 for k in EXTRACT_KERNELS), f"tiny slice launches {tiny_counts}")
     say(f"[6 tiny slice] x_concat {card['x_concat'].shape} cos {xcos:.6f}; hs_last_seq card "
         f"{card['hs_last_seq'].shape} cpu {cpu['hs_last_seq'].shape}; tokens agree on "
         f"{prefix}/64 positions, state cos prompt {hcos_prompt:.6f} first {limit} {hcos_prefix:.6f}; "
@@ -231,12 +288,12 @@ def main() -> int:
         check(out["hs_last_seq"].ndim == 2 and out["hs_last_seq"].shape[1] == 1280,
               f"turbo hs_last_seq shape {out['hs_last_seq'].shape}")
         check(all(np.isfinite(v).all() for v in out.values()), "turbo outputs not finite")
-    check(all(v > 0 for v in turbo_counts.values()), f"turbo launches {turbo_counts}")
+    check(all(turbo_counts[k] > 0 for k in EXTRACT_KERNELS), f"turbo launches {turbo_counts}")
     say(f"[7 turbo slice] 2 songs x 3 chunks: x_concat {[o['x_concat'].shape for o in outs]} "
         f"hs_last_seq {[o['hs_last_seq'].shape for o in outs]}; {6 / turbo_s:.2f} clips/s "
         f"({turbo_s:.2f} s, max_len 64); peak {peak_gb:.2f} GB; launches {turbo_counts}")
-    for name, n in turbo_counts.items():
-        kernels[name]["launches"] = n
+    for name in EXTRACT_KERNELS:
+        kernels[name]["launches"] = turbo_counts[name]
     del model
 
     # 8. throughput: whisper-tiny mel + encoder + mean pool, B=64 (bench.py's metric)
@@ -252,6 +309,16 @@ def main() -> int:
     say(f"[8 throughput] whisper-tiny mel+encoder+mean-pool B=64: {ms:.2f} ms/batch, "
         f"{64e3 / ms:.1f} clips/s | {smi}")
 
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # 10. evaluate through the CLI at full width on a synthetic project
+    with tempfile.TemporaryDirectory(prefix="wealy_eval_") as tmp:
+        evaluate_phase(tmp, dev, reset_counts, counts, kernels)
+
+    # 11. chunk-set bpwr ranking at SHS100K-TEST scale
+    ranking_phase(dev, smi)
+
     if FAILURES:
         say(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -262,6 +329,203 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed: int = 0):
+    """A lyric-covers project in the layout of tests/test_cli.py::project:
+    CSVs (written with the stdlib csv module), a config, and per version an
+    ``hs_last_seq`` of (T, 1280) fp16 with T drawn from 1000-2700 (1-18
+    chunks of 1000 frames at overlap 0.9). Clique members are noisy copies
+    of one base sequence. Returns (config path, [(version id, clique)])."""
+    import csv
+
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    lc = os.path.join(root, "lc")
+    os.makedirs(lc)
+    store = EmbeddingStore(os.path.join(root, "hs"), "lyric-covers")
+    rows = []
+    for c in range(n_cliques):
+        base = torch.randn(2700, 1280, device=dev, generator=g)
+        for k in range(per_clique):
+            vid = 1000 + c * per_clique + k
+            T = int(rng.integers(1000, 2701))
+            emb = base[:T] + torch.randn(T, 1280, device=dev, generator=g)
+            store.save(str(vid), "hs_last_seq.npz", embeddings=emb.half().cpu().numpy())
+            rows.append((vid, f"c{c}"))
+    header = ["original_id", "id", "is_cover", "song_text_type", "label"]
+    for split in ("train", "val", "test"):
+        with open(os.path.join(lc, f"{split}_no_dup.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(header)
+            if split == "test":
+                for i, (vid, label) in enumerate(rows):
+                    w.writerow([rows[i - i % per_clique][0], vid, i % per_clique > 0, "o", label])
+    conf = {
+        "path": {"lyric_covers_data": lc, "hidden_states": os.path.join(root, "hs"),
+                 "cache": os.path.join(root, "cache")},
+        "data": {"dataset_name": "lyric-covers", "embedding_type": "last_hidden_states",
+                 "embedding_format": "concat", "chunk_size": 1000, "overlap_percentage": 0.9},
+        "model": {"name": "whisper", "zdim": 512},
+    }
+    cpath = os.path.join(root, "conf.json")
+    with open(cpath, "w") as f:
+        json.dump(conf, f)
+    return cpath, rows
+
+
+def run_cli(argv) -> tuple[dict, float]:
+    """``python -m wealy_tpu_torch.cli.main <argv>`` in-process: (the JSON
+    line it prints, wall seconds)."""
+    from wealy_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {argv} exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def evaluate_phase(tmp: str, dev, reset_counts, counts, kernels) -> None:
+    from wealy_tpu_torch.cli.main import build_parser, embed_split, evaluate, load_head
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.train.config import Config
+
+    t0 = time.perf_counter()
+    cpath, rows = write_project(tmp, dev)
+    setup_s = time.perf_counter() - t0
+    n = len(rows)
+    base = ["evaluate", "--config", cpath, "--split", "test", "--redux", "bpwr"]
+    reset_counts()
+    mono, mono_s = run_cli(base)
+    streamed, streamed_s = run_cli(base + ["--streaming", "--chunk-sets"])
+    eval_counts = counts()
+    kernels["bpwr_redux"]["launches"] = eval_counts["bpwr_redux"]
+    keys = ("MAP", "MR1", "P@10", "n_queries")
+    check(all(mono[k] == streamed[k] for k in keys),
+          f"evaluate monolithic {mono} != streamed {streamed}")
+    check(eval_counts["bpwr_redux"] > 0, f"evaluate launched K4 {eval_counts['bpwr_redux']} times")
+    check(mono["n_queries"] == n and mono["MAP"] > 0.5,
+          f"evaluate metrics {mono} (chance MAP is about 0.03)")
+
+    # card against CPU on a 16-version subset, the same seeded head
+    sub = os.path.join(tmp, "subset")
+    os.makedirs(os.path.join(sub, "lc"))
+    for split in ("train", "val", "test"):
+        with open(os.path.join(tmp, "lc", f"{split}_no_dup.csv")) as f:
+            lines = f.read().splitlines()
+        with open(os.path.join(sub, "lc", f"{split}_no_dup.csv"), "w") as f:
+            f.write("\n".join(lines[:17] if split == "test" else lines) + "\n")
+    conf = json.load(open(cpath))
+    conf["path"]["lyric_covers_data"] = os.path.join(sub, "lc")
+    conf["path"]["cache"] = os.path.join(sub, "cache")
+    sub_conf = os.path.join(sub, "conf.json")
+    with open(sub_conf, "w") as f:
+        json.dump(conf, f)
+    args = build_parser().parse_args(["evaluate", "--config", sub_conf, "--split", "test"])
+    card_m = evaluate(args, device=dev)
+    t1 = time.perf_counter()
+    cpu_m = evaluate(build_parser().parse_args(["evaluate", "--config", sub_conf]), device="cpu")
+    cpu_s = time.perf_counter() - t1
+    config = Config.from_file(sub_conf)
+    ds = EmbeddingDataset(config, "test")
+    z = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        head = load_head(config, 1280, None, device)
+        sets, masks, _, _ = embed_split(config, ds, head, device=device)
+        z[where] = sets[0][masks[0]]
+    zcos = min_row_cos(torch.from_numpy(z["card"]), torch.from_numpy(z["cpu"]))
+    check(all(card_m[k] == cpu_m[k] for k in keys), f"subset card {card_m} != CPU {cpu_m}")
+    check(zcos >= 0.99999, f"subset z cosine card vs CPU {zcos:.7f} < 0.99999")
+    say(f"[10 evaluate] {n} versions, {n // 4} cliques, turbo hs_last_seq (T 1000-2700, 1280-dim) -> "
+        f"ProjectionHead(512): monolithic {mono_s:.2f} s ({n / mono_s:.1f} songs/s), streamed "
+        f"chunk-sets {streamed_s:.2f} s ({n / streamed_s:.1f} songs/s); MAP {mono['MAP']:.6f} "
+        f"MR1 {mono['MR1']:.4f} P@10 {mono['P@10']:.4f}, streamed equal "
+        f"{all(mono[k] == streamed[k] for k in keys)}; launches {eval_counts}; 16-version "
+        f"subset card {card_m['MAP']:.6f} == CPU {cpu_m['MAP']:.6f} (CPU {cpu_s:.1f} s), "
+        f"{z['card'].shape[0]} chunk z cos {zcos:.7f}; set-up {setup_s:.1f} s")
+
+
+def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: int = 512):
+    """streaming_relevant_ranks with chunk-set bpwr at the size of
+    SHS100K-TEST (10,547 versions), the resident corpus, every query; the
+    first 64 queries re-ranked with the plain redux in the same blocks."""
+    from wealy_tpu_torch.cli.main import _set_block_size
+    from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block
+    from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
+    from wealy_tpu_torch.parallel.similarity import (
+        map_from_ranks,
+        relevant_columns,
+        streaming_relevant_ranks,
+    )
+
+    rng = np.random.default_rng(11)
+    sizes = []
+    while sum(sizes) < n_versions:
+        sizes.append(int(rng.integers(2, 13)))
+    sizes[-1] -= sum(sizes) - n_versions
+    if sizes[-1] < 2:
+        sizes[-2] += sizes.pop()
+    labels = np.repeat(np.arange(len(sizes)), sizes)
+    g = torch.Generator(device=dev).manual_seed(12)
+    base = torch.randn(len(sizes), smax, zdim, device=dev, generator=g)
+    sets = base[torch.from_numpy(labels).to(dev)] + 2.0 * torch.randn(
+        n_versions, smax, zdim, device=dev, generator=g)
+    n_chunks = torch.from_numpy(rng.integers(1, smax + 1, n_versions)).to(dev)
+    mask = torch.arange(smax, device=dev)[None, :] < n_chunks[:, None]
+    sets = (sets * mask[..., None]).cpu().numpy()
+    mask = mask.cpu().numpy()
+    ids = np.arange(n_versions) + 10**6
+    blk = _set_block_size(smax)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ranks, n_rel = streaming_relevant_ranks(
+        sets, sets, labels, labels, mode="cos", redux="bpwr", query_mask=mask, corpus_mask=mask,
+        block_size=blk, query_block=blk, query_idx=ids, corpus_idx=ids, device=dev,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = map_from_ranks(ranks, n_rel, topk=(10,))
+
+    # the first 64 queries, plain redux, the same (blk, blk) blocks and padding
+    nq, N = 64, n_versions
+    q = torch.zeros(blk, smax, zdim, device=dev)
+    q[:blk] = torch.from_numpy(sets[:blk]).to(dev)
+    qm = torch.from_numpy(mask[:blk]).to(dev)
+    cols = []
+    with torch.no_grad():
+        for s in range(0, N, blk):
+            y = torch.zeros(blk, smax, zdim, device=dev)
+            ym = torch.zeros(blk, smax, dtype=torch.bool, device=dev)
+            e = min(s + blk, N)
+            y[: e - s] = torch.from_numpy(sets[s:e]).to(dev)
+            ym[: e - s] = torch.from_numpy(mask[s:e]).to(dev)
+            d = pairwise_distance_matrix(q.reshape(-1, zdim), y.reshape(-1, zdim), mode="cos")
+            d = d.reshape(blk, smax, blk, smax).permute(0, 2, 1, 3)
+            cols.append(_reference_bpwr_block(d, qm, ym, "bpwr", 1e-7, 1e12)[:nq, : e - s])
+        dist = torch.cat(cols, dim=1)  # (64, N), plain redux
+        rel = torch.from_numpy(relevant_columns(labels, labels, ids, ids)[0][:nq]).to(dev)
+        ref = torch.take_along_dim(dist, rel.clamp(min=0), dim=1)[:, :, None]
+        pos = torch.arange(N, device=dev)[None, None, :]
+        ok = torch.from_numpy(ids[None, :] != ids[:nq, None]).to(dev)[:, None, :]
+        ahead = (dist[:, None, :] < ref) | ((dist[:, None, :] == ref) & (pos < rel[:, :, None]))
+        plain_ranks = torch.where(rel >= 0, (ahead & ok).sum(-1) + 1, 0).cpu().numpy()
+    same = np.array_equal(plain_ranks, ranks[:nq])
+    check(same, "phase 11: kernel ranks of the first 64 queries differ from the plain redux's")
+    check(m["n_queries"] == n_versions and np.isfinite(m["MAP"]) and m["MAP"] > 0.1,
+          f"phase 11 metrics {m}")
+    pairs = float(n_versions) * n_versions
+    say(f"[11 ranking] {n_versions} versions (all queried), {len(sizes)} cliques of 2-12, smax "
+        f"{smax}, zdim {zdim}, cos + K4 bpwr, blocks {blk}x{blk} resident: {wall:.2f} s, "
+        f"{pairs / wall:.4g} pairs/s, peak {peak:.2f} GB; MAP {m['MAP']:.6f} MR1 {m['MR1']:.3f}; "
+        f"first {nq} queries plain-redux ranks identical {same} | {smi}")
 
 
 if __name__ == "__main__":

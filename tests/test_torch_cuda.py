@@ -2,9 +2,11 @@
 against its plain PyTorch version at the main path's shapes; these tests
 cover the edges it does not: a lone clip and a zero-padded tail (K1), one
 query or key and unequal query and key lengths (K2), one row and rows that
-fill no tile (K3), the launch counters, the shapes the kernels refuse, and
-the encoder's routing through K2 and K3. Both use the tolerances defined
-beside the kernels. Marked ``cuda``; each skips without a card.
+fill no tile (K3), tiles of one row or the widest side and bpwr-n rounds
+(K4, bit-equal to its plain version), the launch counters, the shapes the
+kernels refuse, and the encoder's routing through K2 and K3. All use the
+tolerances defined beside the kernels. Marked ``cuda``; each skips without
+a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -20,7 +22,10 @@ from wealy_tpu_torch.audio import mel as tmel
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.cli.extract import load_whisper_model
 from wealy_tpu_torch.models.whisper.model import Whisper
+from wealy_tpu_torch.eval.retrieval import song_distance_matrix
 from wealy_tpu_torch.ops import bf16_agreement
+from wealy_tpu_torch.ops.bpwr_redux import MAX_SIDE, _reference_bpwr_block, bpwr_block_redux
+from wealy_tpu_torch.parallel.similarity import streaming_relevant_ranks
 from wealy_tpu_torch.ops.flash_attention import _reference_mha, flash_mha
 from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
 
@@ -112,3 +117,76 @@ def test_tiny_encoder_on_card_matches_cpu(dev):
         want = cpu_model.encode(mel)
     assert (flash_mha.launches, fused_mlp.launches) == (before[0] + 4, before[1] + 4)
     assert min_row_cosine(to_numpy(got), to_numpy(want)) >= 0.999
+
+
+@pytest.mark.parametrize("Q,B,s1,s2,redux", [
+    (1, 1, 1, 1, "bpwr"), (3, 5, 1, MAX_SIDE, "bpwr"), (4, 2, MAX_SIDE, 3, "bpwr"),
+    (2, 3, 7, 9, "bpwr-1"), (2, 3, 9, 7, "bpwr-50"), (1, 40, 33, 33, "bpwr"),
+])
+def test_bpwr_kernel_edges(dev, Q, B, s1, s2, redux):
+    """K4 against its plain version, bit for bit, with masked chunks."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    d = torch.rand(Q, B, s1, s2, device=dev, generator=g) * 2
+    qv = torch.rand(Q, s1, device=dev, generator=g) > 0.3
+    cv = torch.rand(B, s2, device=dev, generator=g) > 0.3
+    qv[:, 0] = True
+    before = bpwr_block_redux.launches
+    got = bpwr_block_redux(d, qv, cv, redux)
+    want = _reference_bpwr_block(d, qv, cv, redux, 1e-7, 1e12)
+    torch.cuda.synchronize()
+    assert bpwr_block_redux.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_bpwr_kernel_reads_the_distance_view(dev):
+    """The rank passes' (Q, N, s1, s2) view of the (Q*s1, N*s2) matrix, read
+    through its strides, and a 0-row block (no launch)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.rand(6 * 4, 9 * 5, device=dev, generator=g)
+    view = flat.reshape(6, 4, 9, 5).permute(0, 2, 1, 3)
+    qv = torch.ones(6, 4, dtype=torch.bool, device=dev)
+    cv = torch.rand(9, 5, device=dev, generator=g) > 0.5
+    assert torch.equal(bpwr_block_redux(view, qv, cv), bpwr_block_redux(view.contiguous(), qv, cv))
+    before = bpwr_block_redux.launches
+    empty = bpwr_block_redux(view[:0], qv[:0], cv)
+    assert empty.shape == (0, 9) and bpwr_block_redux.launches == before
+
+
+def test_bpwr_kernel_refuses(dev):
+    valid = torch.ones(1, MAX_SIDE + 1, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bpwr_block_redux"):
+        bpwr_block_redux(torch.zeros(1, 1, MAX_SIDE + 1, MAX_SIDE + 1, device=dev), valid, valid)
+    v2 = torch.ones(1, 2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bpwr_block_redux"):
+        bpwr_block_redux(torch.zeros(1, 1, 2, 2, dtype=torch.float64, device=dev), v2, v2)
+
+
+def test_song_distances_card_against_cpu(dev):
+    """The monolithic chunk-set scorer on the card (f32 product, K4) and on
+    the CPU (plain), on the same sets."""
+    rng = np.random.default_rng(6)
+    sets = rng.normal(size=(20, 6, 32)).astype(np.float32)
+    mask = rng.uniform(size=(20, 6)) > 0.3
+    mask[:, 0] = True
+    card = song_distance_matrix(sets, mask, sets, mask, device=dev)
+    cpu = song_distance_matrix(sets, mask, sets, mask, device="cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_resident_and_streamed_ranks_bit_equal_on_card(dev):
+    """Chunk-set bpwr ranks with the corpus resident on the card and with
+    each block copied as it is used: the same blocks, the same bits."""
+    rng = np.random.default_rng(7)
+    labels = np.repeat(np.arange(15), 4)
+    base = rng.normal(size=(15, 6, 32)).astype(np.float32)
+    sets = base[labels] + rng.normal(size=(60, 6, 32)).astype(np.float32)
+    mask = np.arange(6)[None, :] < rng.integers(1, 7, 60)[:, None]
+    sets[7], mask[7] = sets[3], mask[3]  # an exact tie across cliques
+    kw = dict(mode="cos", redux="bpwr", query_mask=mask, corpus_mask=mask, block_size=16,
+              query_block=9, device=dev)
+    before = bpwr_block_redux.launches
+    resident, n1 = streaming_relevant_ranks(sets, sets, labels, labels, resident=True, **kw)
+    streamed, n2 = streaming_relevant_ranks(sets, sets, labels, labels, resident=False, **kw)
+    assert bpwr_block_redux.launches > before
+    np.testing.assert_array_equal(resident, streamed)
+    np.testing.assert_array_equal(n1, n2)

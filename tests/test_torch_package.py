@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port (wealy_tpu_torch): it imports no
-JAX, its kernel wrappers count launches only when they launch, its build
-raises without nvcc, and chip_smoke.py refuses to run without a card."""
+JAX (nor pandas, flax or orbax, which the card's machine lacks), its kernel
+wrappers count launches only when they launch, its build raises without
+nvcc, and chip_smoke.py refuses to run without a card."""
 
 import os
 import pkgutil
@@ -18,6 +19,7 @@ import wealy_tpu_torch
 from wealy_tpu_torch import _build
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.audio.mel import N_SAMPLES
+from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
 from wealy_tpu_torch.ops.flash_attention import flash_mha
 from wealy_tpu_torch.ops.fused_mlp import fused_mlp
 
@@ -40,11 +42,12 @@ def _env():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "wealy_tpu_torch.models.whisper.extract" in mods
+    assert "wealy_tpu_torch.cli.main" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))"
-        " or m == 'wealy_tpu' or m.startswith('wealy_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'orbax', 'pandas', 'wealy_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -78,14 +81,14 @@ def test_forbidden_patterns_absent(pattern):
 
 
 def test_every_kernel_has_a_source_note():
-    for name in ("log_mel.cu", "flash_attention.cu", "fused_mlp.cu"):
+    for name in ("log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "bpwr_redux.cu"):
         head = (PKG / "csrc" / name).read_text()[:3000]
         assert "Replaces the TPU kernel wealy_tpu/" in head, name
         assert "What bounds it on an H100" in head, name
 
 
 def test_cpu_path_counts_no_launches():
-    counters = (log_mel_spectrogram_fused, flash_mha, fused_mlp)
+    counters = (log_mel_spectrogram_fused, flash_mha, fused_mlp, bpwr_block_redux)
     before = [f.launches for f in counters]
     rng = np.random.default_rng(0)
     log_mel_spectrogram_fused(torch.from_numpy(rng.normal(size=N_SAMPLES).astype(np.float32)))
@@ -94,17 +97,23 @@ def test_cpu_path_counts_no_launches():
     x = torch.zeros(3, 64, dtype=torch.bfloat16)
     w = torch.zeros(256, 64, dtype=torch.bfloat16)
     fused_mlp(x, w, torch.zeros(256), w.T.contiguous(), torch.zeros(64))
+    d = torch.from_numpy(rng.uniform(size=(2, 3, 4, 5)).astype(np.float32))
+    bpwr_block_redux(d, torch.ones(2, 4, dtype=torch.bool), torch.ones(3, 5, dtype=torch.bool))
     assert [f.launches for f in counters] == before
 
 
 def test_non_cuda_device_raises():
-    before = (flash_mha.launches, log_mel_spectrogram_fused.launches)
+    before = (flash_mha.launches, log_mel_spectrogram_fused.launches, bpwr_block_redux.launches)
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="flash_mha"):
         flash_mha(q, q, q, 0.125)
     with pytest.raises(ValueError, match="log_mel"):
         log_mel_spectrogram_fused(torch.zeros(N_SAMPLES, device="meta"))
-    assert (flash_mha.launches, log_mel_spectrogram_fused.launches) == before
+    valid = torch.ones(1, 2, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="bpwr_block_redux"):
+        bpwr_block_redux(torch.zeros(1, 1, 2, 2, device="meta"), valid, valid)
+    assert (flash_mha.launches, log_mel_spectrogram_fused.launches,
+            bpwr_block_redux.launches) == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -118,8 +127,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_flags_and_source_hash():
     assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     names = {p.name for p in _build.sources()}
-    assert {"log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "common.cuh"} <= names
-    assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd", "wealy_fused_mlp"}
+    assert {"log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "bpwr_redux.cu",
+            "common.cuh"} <= names
+    assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd", "wealy_fused_mlp",
+                                      "wealy_bpwr_redux"}
+    assert "-shared" not in _build.NVCC_FLAGS  # one object per source, linked after
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
 

@@ -1,13 +1,15 @@
 """Build-on-first-use for the hand-written CUDA kernels (``csrc/*.cu``).
 
-The first call to :func:`library` compiles every ``csrc/*.cu`` into one
-shared library with a plain C interface::
+The first call to :func:`library` compiles each ``csrc/*.cu`` into an
+object file, one ``nvcc`` per source, all started together::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libwealy_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
 
-into ``csrc/_build/<hash>/``, where ``<hash>`` covers the sources and the
-flags, and loads it with ``ctypes``. Pointers and the CUDA stream cross the
+then links them into one shared library with a plain C interface
+(``nvcc -shared -o libwealy_kernels.so *.o``) in ``csrc/_build/<hash>/``,
+where ``<hash>`` covers the sources and the flags, and loads it with
+``ctypes``. Pointers and the CUDA stream cross the
 boundary as ``c_void_p``; every entry point returns ``cudaGetLastError()``
 after its launch and :func:`check` raises when that is not 0. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
@@ -30,20 +32,25 @@ BUILD_ROOT = CSRC / "_build"
 LIB_NAME = "libwealy_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, kept in build.log
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     # audio, wcos, wsin, melw, out, batch, n_samples, n_frames, n_mels, stream
     "wealy_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, batch, tq, tk, heads, head_dim, scale, stream
-    "wealy_flash_mha_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "wealy_flash_mha_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, hidden, out, rows, d_model, d_ff, stream
     "wealy_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # d, qvalid, cvalid, out, Q, B, s1, s2, stride_q, stride_b, stride_s1, stride_s2,
+    # n_rounds, eps, inf, stream
+    "wealy_bpwr_redux": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -85,17 +92,33 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} (exit {proc.returncode}):\n{output[-3000:]}")
+    if not failed:
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
     build_seconds = time.perf_counter() - t0
     return lib_path

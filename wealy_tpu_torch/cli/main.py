@@ -1,0 +1,248 @@
+"""Command-line entry of the port: ``validate-data`` and ``evaluate``.
+
+    python -m wealy_tpu_torch.cli.main validate-data --config conf.json
+    python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
+        [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint head.pt]
+
+The counterpart of ``wealy_tpu.cli.main`` for these two commands, with the
+JAX parser's evaluate flags. ``evaluate`` runs on the card when there is one
+(the head, the chunk distances, K4 and the rank passes), else on the CPU.
+``--checkpoint`` is a torch state-dict file of the head (the JAX package's
+orbax directories need JAX to read); without one the head is initialised
+from ``torch.Generator`` seed 0 (``models/heads.py::seeded_init_``), which
+is not the JAX package's init. Fusion models and ``--test-mode`` come with
+the CLEWS/fusion slice; ``--profile`` with ``utils/profiling.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+
+import numpy as np
+import torch
+
+from wealy_tpu_torch import default_device
+
+AUTO_STREAM_THRESHOLD = 2000
+
+
+def _load_config(path: str):
+    from wealy_tpu_torch.train.config import Config
+
+    return Config.from_file(path)  # YAML (OmegaConf-style) or JSON
+
+
+def _auto_streaming(args, n_songs: int, exact_chunk_sets: bool = False) -> None:
+    """Select the streaming ranking path above ``AUTO_STREAM_THRESHOLD``
+    songs (the monolithic path pads every chunk set into one (S, S) redux);
+    ``exact_chunk_sets`` also selects --chunk-sets, so that the streamed
+    ranking is the same chunk-set --redux scoring. ``--no-streaming`` keeps
+    the monolithic path."""
+    if args.streaming or getattr(args, "no_streaming", False):
+        return
+    if n_songs <= AUTO_STREAM_THRESHOLD:
+        return
+    args.streaming = True
+    if exact_chunk_sets:
+        args.chunk_sets = True
+    print(
+        f"[evaluate] {n_songs} songs > {AUTO_STREAM_THRESHOLD}: auto-selected --streaming"
+        + (" --chunk-sets" if exact_chunk_sets else "")
+        + " (identical metrics, bounded memory; pass --no-streaming to force the "
+        "monolithic path)",
+        file=sys.stderr,
+    )
+
+
+def _set_block_size(smax: int, budget_mb: float = 64.0) -> int:
+    """Block edge for chunk-set streaming: the transient (block, block,
+    smax, smax) f32 redux tensor stays within ``budget_mb``."""
+    b = int(math.sqrt(budget_mb * 1e6 / max(1, smax * smax) / 4))
+    return max(16, min(2048, b))
+
+
+def _pad_chunk_sets(all_sets, all_masks, n_rows):
+    """Per-group (S_g, s_g, C) chunk sets -> one (S, smax, C) array and its
+    True=valid mask, every group padded to the largest chunk count."""
+    max_chunks = max(s.shape[1] for s in all_sets)
+    sets = np.zeros((n_rows, max_chunks, all_sets[0].shape[-1]), np.float32)
+    set_mask = np.zeros((n_rows, max_chunks), bool)
+    row = 0
+    for s, m in zip(all_sets, all_masks):
+        sets[row : row + s.shape[0], : s.shape[1]] = s
+        set_mask[row : row + s.shape[0], : s.shape[1]] = m
+        row += s.shape[0]
+    return sets, set_mask
+
+
+def cmd_validate_data(args) -> int:
+    from wealy_tpu_torch.data.dataset import build_clean_dataset, validate_data_structures
+
+    config = _load_config(args.config)
+    md, _ = build_clean_dataset(config, verbose=True, check_audio=args.check_audio)
+    reports = {s: validate_data_structures(md, s) for s in ("train", "val", "test")}
+    print(json.dumps(reports, indent=2))
+    return 0 if all(r["ok"] for r in reports.values()) else 1
+
+
+def load_head(config, in_features: int, checkpoint=None, device=None):
+    """The evaluate head for ``config.model``: weights from ``checkpoint``
+    (a torch state-dict file) or seeded, in eval mode on ``device``."""
+    from wealy_tpu_torch.models.heads import seeded_init_
+    from wealy_tpu_torch.models.registry import build_model
+
+    model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=in_features)
+    if checkpoint:
+        model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True))
+    else:
+        seeded_init_(model, seed=0)
+    return model.to(device if device is not None else default_device()).eval()
+
+
+def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 256,
+                pooled: bool = False, device=None):
+    """Every version of ``ds``'s split through the head, ``song_group``
+    songs at a time (host memory holds one group's chunk tensor).
+
+    Returns (sets, set_masks, labels, ids): per group, the (S_g, s_g, zdim)
+    chunk sets and masks, or with ``pooled`` each song's mean chunk vector
+    (S_g, zdim) and no masks.
+    """
+    from wealy_tpu_torch.data.chunking import collate_avg_pool, collate_overlapping
+    from wealy_tpu_torch.eval.retrieval import regroup_chunks, slabbed_apply
+
+    versions = list(ds.sampler.versions)
+    L = config.data.chunk_size
+    all_sets, all_masks, labels, ids = [], [], [], []
+    for g0 in range(0, len(versions), max(1, song_group)):
+        group = versions[g0 : g0 + max(1, song_group)]
+        items = [
+            (ds.sampler.labels[ds.sampler.clique_of[v]],
+             [(int(ds.metadata.info[v]["id"]), ds.load_embedding(v))])
+            for v in group
+        ]
+        if config.data.use_avg_pooling:
+            # time collapses to one vector per song before the head: a
+            # length-1 sequence, one z per song (a 1-chunk set)
+            ab = collate_avg_pool(items)
+            x = ab.embeddings.reshape(len(items), 1, -1)
+            z = slabbed_apply(model, x, np.ones(x.shape[:2], bool), slab_size=encode_slab,
+                              device=device)
+            sets, set_mask, bidx = z[:, None, :], ab.masks.reshape(len(items), 1), range(len(items))
+        else:
+            batch = collate_overlapping(items, chunk_size=L,
+                                        overlap=config.data.overlap_percentage)
+            z = slabbed_apply(model, batch.embeddings, batch.masks, slab_size=encode_slab,
+                              device=device)
+            sets, set_mask, bidx, _ = regroup_chunks(z, batch.chunk_info, batch.chunk_valid)
+        labels.extend(items[i][0] for i in bidx)
+        ids.extend(items[i][1][0][0] for i in bidx)
+        if pooled:
+            w = set_mask[..., None].astype(np.float32)
+            all_sets.append((sets * w).sum(axis=1) / np.maximum(w.sum(axis=1), 1e-9))
+        else:
+            all_sets.append(sets)
+            all_masks.append(set_mask)
+    return all_sets, all_masks, np.asarray(labels), np.asarray(ids)
+
+
+def evaluate(args, device=None) -> dict:
+    """The ``evaluate`` command's metrics (MAP, MR1, P@10, n_queries)."""
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.eval.retrieval import evaluate_retrieval
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+
+    if args.test_mode:
+        raise NotImplementedError(
+            "--test-mode embeds the chunks of fusion models; it comes with the CLEWS/fusion "
+            "slice of the port"
+        )
+    device = torch.device(device) if device is not None else default_device()
+    config = _load_config(args.config)
+    ds = EmbeddingDataset(config, args.split, seed=0)
+    versions = list(ds.sampler.versions)
+    _auto_streaming(args, len(versions), exact_chunk_sets=True)
+    emb_dim = ds.load_embedding(versions[0]).shape[-1]
+    model = load_head(config, emb_dim, args.checkpoint, device)
+    pooled = args.streaming and not args.chunk_sets
+    all_sets, all_masks, labels, ids = embed_split(
+        config, ds, model, song_group=args.song_group, encode_slab=args.encode_slab,
+        pooled=pooled, device=device,
+    )
+    if pooled:
+        # corpus-scale ranks over pooled song vectors
+        vecs = np.concatenate(all_sets, axis=0)
+        ranks, n_rel = streaming_relevant_ranks(
+            vecs, vecs, labels, labels, mode="cos", query_idx=ids, corpus_idx=ids, device=device
+        )
+        return map_from_ranks(ranks, n_rel, topk=(10,))
+    sets, set_mask = _pad_chunk_sets(all_sets, all_masks, len(labels))
+    if args.streaming:
+        # exact chunk-set ranking streamed in blocks: the transient device
+        # tensor is one (block, block, s, s) distance block
+        blk = _set_block_size(sets.shape[1])
+        ranks, n_rel = streaming_relevant_ranks(
+            sets, sets, labels, labels, mode="cos", redux=args.redux,
+            query_mask=set_mask, corpus_mask=set_mask, block_size=blk, query_block=blk,
+            query_idx=ids, corpus_idx=ids, device=device,
+        )
+        return map_from_ranks(ranks, n_rel, topk=(10,))
+    metrics = evaluate_retrieval(sets, set_mask, labels, version_ids=ids, redux=args.redux,
+                                 device=device)
+    metrics.pop("_dist")
+    return metrics
+
+
+def cmd_evaluate(args) -> int:
+    print(json.dumps(evaluate(args)))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="wealy_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    v = sub.add_parser("validate-data", help="build + validate dataset metadata")
+    v.add_argument("--config", required=True)
+    v.add_argument("--check-audio", action="store_true")
+    v.set_defaults(fn=cmd_validate_data)
+
+    ev = sub.add_parser("evaluate", help="MAP/MR1 retrieval evaluation")
+    ev.add_argument("--config", required=True)
+    ev.add_argument("--split", default="test")
+    ev.add_argument("--checkpoint", default=None,
+                    help="torch state-dict file of the head (default: seeded init)")
+    ev.add_argument("--redux", default="bpwr")
+    ev.add_argument(
+        "--no-streaming", action="store_true",
+        help="force the monolithic ranking path even above the "
+        f"{AUTO_STREAM_THRESHOLD}-song auto-streaming threshold",
+    )
+    ev.add_argument("--streaming", action="store_true",
+                    help="corpus-scale ranks via column-block streaming (no full NxN matrix)")
+    ev.add_argument("--song-group", type=int, default=64,
+                    help="songs collated+encoded per group (bounds host chunk memory)")
+    ev.add_argument("--encode-slab", type=int, default=256,
+                    help="chunks per head call (fixed shape)")
+    ev.add_argument("--test-mode", action="store_true",
+                    help="fusion models: embed ALL chunks per song (not in this port yet)")
+    ev.add_argument(
+        "--chunk-sets", action="store_true",
+        help="with --streaming: exact chunk-set --redux ranking streamed in blocks instead "
+        "of chunk-pooled song vectors",
+    )
+    ev.set_defaults(fn=cmd_evaluate)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

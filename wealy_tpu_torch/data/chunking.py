@@ -1,0 +1,132 @@
+"""Evaluation collates with static output shapes, copied from
+``wealy_tpu.data.chunking`` (the training collates come with the training
+slice).
+
+- :func:`collate_overlapping`: overlapping windows per song (stride =
+  chunk_size - int(chunk_size * overlap)), the chunk count padded to a
+  multiple of ``chunk_bucket`` with a chunk-valid mask; ``chunk_info`` rows
+  (batch_idx, version_idx, chunk_idx) regroup chunks per song.
+- :func:`collate_avg_pool`: time collapsed to one vector per version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+Item = Tuple[int, List[Tuple[int, Optional[np.ndarray]]]]
+# one item = (clique_label, [(version_id, embedding (T, C) or None), ...])
+
+
+def _embed_dim(items: Sequence[Item]) -> int:
+    for _, versions in items:
+        for _, emb in versions:
+            if emb is not None:
+                return np.asarray(emb).shape[-1]
+    raise ValueError("all embeddings in batch are None")
+
+
+@dataclasses.dataclass
+class Batch:
+    """Fixed-shape batch: (B,) cliques, (B, n) version ids, embeddings and
+    masks with a leading (B, n)."""
+
+    clique_ids: np.ndarray
+    version_ids: np.ndarray
+    embeddings: np.ndarray
+    masks: np.ndarray
+
+
+def collate_avg_pool(items: Sequence[Item]) -> Batch:
+    """Avg-pooling collate: one mean vector per version; masks (B, n) True =
+    embedding present."""
+    B, n, C = len(items), len(items[0][1]), _embed_dim(items)
+    clique_ids = np.empty((B,), np.int64)
+    version_ids = np.zeros((B, n), np.int64)
+    embeddings = np.zeros((B, n, C), np.float32)
+    masks = np.zeros((B, n), bool)
+    for i, (label, versions) in enumerate(items):
+        clique_ids[i] = label
+        for j, (vid, emb) in enumerate(versions):
+            version_ids[i, j] = vid
+            if emb is None:
+                continue
+            emb = np.asarray(emb, np.float32)
+            embeddings[i, j] = emb[0] if emb.shape[0] == 1 else emb.mean(axis=0)
+            masks[i, j] = True
+    return Batch(clique_ids, version_ids, embeddings, masks)
+
+
+@dataclasses.dataclass
+class ChunkedBatch:
+    """Test-time overlapping-chunk batch; rows beyond ``n_chunks`` are bucket
+    padding (chunk_valid False)."""
+
+    clique_ids: np.ndarray  # (N,)
+    version_ids: np.ndarray  # (N,)
+    embeddings: np.ndarray  # (N, L, C)
+    masks: np.ndarray  # (N, L)
+    chunk_info: np.ndarray  # (N, 3) int
+    chunk_valid: np.ndarray  # (N,) bool
+    n_chunks: int
+
+
+def collate_overlapping(
+    items: Sequence[Item],
+    chunk_size: int = 1000,
+    overlap: float = 0.9,
+    embedding_type: str = "whisper",
+    chunk_bucket: int = 64,
+) -> ChunkedBatch:
+    """Test collate: overlapping windows per song, the chunk count padded to
+    a multiple of ``chunk_bucket``."""
+    stride = max(1, chunk_size - int(chunk_size * overlap))
+    rows = []  # (clique, version, chunk (L, C) or None, mask (L,) or None, i, j, k)
+    fixed = None
+    for i, (label, versions) in enumerate(items):
+        for j, (vid, emb) in enumerate(versions):
+            if emb is None:
+                rows.append((label, vid, None, None, i, j, 0))
+                continue
+            emb = np.asarray(emb, np.float32)
+            T = emb.shape[0]
+            if T == 1 or embedding_type == "clews":
+                # fixed-shape embeddings: a single chunk, as-is
+                fixed = T if fixed is None else fixed
+                rows.append((label, vid, emb, np.ones(T, bool), i, j, 0))
+            elif T <= chunk_size:
+                chunk = np.zeros((chunk_size, emb.shape[-1]), np.float32)
+                mask = np.zeros((chunk_size,), bool)
+                chunk[:T] = emb
+                mask[:T] = True
+                rows.append((label, vid, chunk, mask, i, j, 0))
+            else:
+                for k, start in enumerate(range(0, T - chunk_size + 1, stride)):
+                    rows.append((label, vid, emb[start : start + chunk_size],
+                                 np.ones(chunk_size, bool), i, j, k))
+
+    L = fixed if fixed is not None else chunk_size
+    C = next((r[2].shape[-1] for r in rows if r[2] is not None), None)
+    if C is None:
+        raise ValueError("all embeddings in batch are None")
+    n_real = len(rows)
+    N = -(-n_real // chunk_bucket) * chunk_bucket
+    clique_ids = np.zeros((N,), np.int64)
+    version_ids = np.zeros((N,), np.int64)
+    embeddings = np.zeros((N, L, C), np.float32)
+    masks = np.zeros((N, L), bool)
+    chunk_info = np.full((N, 3), -1, np.int64)
+    chunk_valid = np.zeros((N,), bool)
+    for idx, (label, vid, chunk, mask, i, j, k) in enumerate(rows):
+        clique_ids[idx] = label
+        version_ids[idx] = vid
+        if chunk is not None:
+            embeddings[idx, : chunk.shape[0]] = chunk
+            masks[idx, : chunk.shape[0]] = mask
+        chunk_info[idx] = (i, j, k)
+        chunk_valid[idx] = True
+    return ChunkedBatch(
+        clique_ids, version_ids, embeddings, masks, chunk_info, chunk_valid, n_real
+    )

@@ -1,1 +1,2 @@
-"""Models of the port (Whisper for now)."""
+"""Models of the port: Whisper (``whisper/``) and the projection heads that
+turn stored Whisper embeddings into retrieval vectors."""
