@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_profile.py [--out profile_out]
 
-Four pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
+Five pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
 
 - whisper-tiny mel + bf16 encoder + mean pool at B=64, three batches;
 - large-v3-turbo ``extract_song`` over one 65 s song (3 chunks, x_concat and
@@ -17,7 +17,11 @@ Four pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
   collate, head, chunk-set scoring and ranks) is printed;
 - chunk-set bpwr ranking (``streaming_relevant_ranks``, resident corpus) at
   SHS100K-TEST scale, 10,547 versions with smax 18, for the first 444
-  queries (two query slabs).
+  queries (two query slabs);
+- one large-v3-turbo fine-tuning step (chip_smoke.py phase 14): the
+  encoder (bf16 compute, f32 masters) + ProjectionHead(512), clews, AdamW,
+  B=8 30 s clips. Before the trace, the untraced host-clock time of the
+  forward + backward and of the whole step is printed, three runs each.
 
 For each trace it prints the host wall of the traced region, the device busy
 time (the union of the intervals of kernels, copies and sets), the idle
@@ -158,6 +162,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="wealy_profile_") as tmp:
         profile_evaluate(tmp, dev, activities, out)
     profile_ranking(dev, activities, out)
+    profile_finetune(dev, activities, out)
     print(smi, flush=True)
     return 0
 
@@ -234,6 +239,44 @@ def profile_ranking(dev, activities, out: Path, n: int = 10547, smax: int = 18,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report(f"ranking_{n_queries}q_x_{n}", prof, wall, out)
+
+
+
+def profile_finetune(dev, activities, out: Path, B: int = 8) -> None:
+    from chip_smoke import mel_batch
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
+    from wealy_tpu_torch.train.finetune import EncoderHead, encoder_head_call
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import loss_and_grads, make_train_step
+
+    whisper, cfg = load_whisper_model("large-v3-turbo", seed=0, device=dev, dtype=torch.bfloat16)
+    head = seeded_init_(ProjectionHead(cfg.n_audio_state, zdim=512), seed=1).to(dev)
+    state = create_train_state(EncoderHead(whisper.encoder, head),
+                               make_optimizer(lr=1e-5, warmup_steps=1, max_steps=1000), init=False)
+    del whisper
+    batch = mel_batch(B, cfg.n_mels, torch.Generator(device=dev).manual_seed(14), dev)
+    step = make_train_step(None, clews_loss, model_call=encoder_head_call)
+    for _ in range(2):  # warm-up: cuBLAS/cuDNN plans, the allocator
+        state, _ = step(state, batch)
+    for run in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grads(state, batch, clews_loss, encoder_head_call)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"[finetune untraced {run}] B={B}: forward+backward {(t1 - t0) * 1e3:.2f} ms, "
+              f"train step {(t2 - t1) * 1e3:.2f} ms", flush=True)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(f"turbo_finetune_step_B{B}", prof, wall, out, top=20)
 
 
 if __name__ == "__main__":

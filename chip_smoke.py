@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
-its plain PyTorch version at the shapes its path gives it, drives
+its plain PyTorch version at the shapes its path gives it (the attention
+backward K5a/K5b against autograd of the plain attention, phase 12), drives
 extract_song at whisper-tiny (card against CPU) and at large-v3-turbo full
 width (random weights from a seed), times the whisper-tiny embedding
 pipeline, drives ``python -m wealy_tpu_torch.cli.main evaluate`` on a
 synthetic project at full width (turbo ``hs_last_seq``, 1280-dim, through
 the 512-wide head; monolithic and streamed; card against CPU on a subset),
-and times chunk-set bpwr ranking at SHS100K-TEST scale. Every phase prints
-one line. At the end come the card's name and power limit, then the kernel
-summary as JSON, then the result as JSON on the last line. Any failed check
-exits nonzero without the result line. Refuses to run without CUDA.
+times chunk-set bpwr ranking at SHS100K-TEST scale, then trains: a
+whisper-tiny encoder+head step on the card against the CPU (phase 13), the
+large-v3-turbo encoder + ProjectionHead(512) fine-tuned at full width and
+depth (phase 14), and ``train`` then ``evaluate --checkpoint`` through the
+CLI on the synthetic project (phase 15). Every phase prints one line. At
+the end come the card's name and power limit, then the kernel summary as
+JSON, then the result as JSON on the last line. Any failed check exits
+nonzero without the result line. Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -82,8 +88,14 @@ def main() -> int:
         extract_song,
     )
     from wealy_tpu_torch.models.whisper.model import Whisper
-    from wealy_tpu_torch.ops import bf16_agreement
-    from wealy_tpu_torch.ops.flash_attention import _reference_mha, flash_mha
+    from wealy_tpu_torch.ops import BF16_GRAD_COS_MIN, bf16_agreement
+    from wealy_tpu_torch.ops.flash_attention import (
+        _reference_mha,
+        flash_mha,
+        flash_mha_bwd_dkv,
+        flash_mha_bwd_dq,
+        flash_mha_fwd,
+    )
     from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
     from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block, bpwr_block_redux
 
@@ -218,7 +230,50 @@ def main() -> int:
                "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}")
     del d, qv, cv
 
+    # 12. K5a/K5b against autograd of _reference_mha (bf16): dQ, dK, dV
+    def plain_backward(q, k, v, g, wrt):
+        """Autograd of the plain attention with respect to ``wrt`` (indices
+        into q, k, v): returns a closure that runs the backward alone."""
+        leaves = [t.detach().requires_grad_(i in wrt) for i, t in enumerate((q, k, v))]
+        with torch.enable_grad():
+            out = _reference_mha(*leaves, 0.125)
+        wanted = [leaves[i] for i in wrt]
+        return lambda: torch.autograd.grad(out, wanted, g, retain_graph=True)
+
+    for B, T, H in ((4, 1500, 6), (2, 1500, 20), (2, 257, 6)):
+        q, k, v, g = (torch.randn(B, T, H, 64, device=dev, generator=gen).bfloat16()
+                      for _ in range(4))
+        out, lse = flash_mha_fwd(q, k, v, 0.125, with_lse=True)
+        dq, delta = flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125)
+        dk, dv = flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125)
+        dq2, delta2 = flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125)
+        dk2, dv2 = flash_mha_bwd_dkv(q, k, v, g, lse, delta2, 0.125)
+        same = all(torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)))
+        plain_dq, plain_dkv = plain_backward(q, k, v, g, (0,)), plain_backward(q, k, v, g, (1, 2))
+        want = (*plain_dq(), *plain_dkv())
+        agree = [bf16_agreement(got, w, BF16_GRAD_COS_MIN) for got, w in zip((dq, dk, dv), want)]
+        ok = check(all(a[0] for a in agree) and same,
+                   f"K5a/K5b B={B} T={T} H={H}: (ok, max abs, min cos) dq/dk/dv {agree}, "
+                   f"repeat bit-equal {same}")
+        ms_dq = cuda_ms(lambda: flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125), 10)
+        ms_dkv = cuda_ms(lambda: flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125), 10)
+        pms_dq, pms_dkv = cuda_ms(plain_dq, 5), cuda_ms(plain_dkv, 5)
+        shape = f"B={B} T={T} H={H} Dh=64"
+        say(f"[12 K5a/K5b attention backward] {shape}: dq/dk/dv max_abs_err "
+            f"{agree[0][1]:.3g}/{agree[1][1]:.3g}/{agree[2][1]:.3g} min_cos "
+            f"{agree[0][2]:.6f}/{agree[1][2]:.6f}/{agree[2][2]:.6f}, repeat bit-equal {same} "
+            f"{'ok' if ok else 'FAIL'}; K5a {ms_dq:.3f} ms (plain dq {pms_dq:.3f} ms), K5b "
+            f"{ms_dkv:.3f} ms (plain dk+dv {pms_dkv:.3f} ms)")
+        record("flash_mha_bwd_dq", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
+               "wealy_tpu/ops/flash_attention.py:171", agree[0][1], ms_dq, pms_dq, shape)
+        record("flash_mha_bwd_dkv", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
+               "wealy_tpu/ops/flash_attention.py:197", max(agree[1][1], agree[2][1]), ms_dkv,
+               pms_dkv, shape)
+    del q, k, v, g, out, lse, dq, dk, dv, dq2, dk2, dv2, want, plain_dq, plain_dkv
+    torch.cuda.empty_cache()
+
     counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
+                "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
                 "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux}
 
     def reset_counts():
@@ -319,6 +374,14 @@ def main() -> int:
     # 11. chunk-set bpwr ranking at SHS100K-TEST scale
     ranking_phase(dev, smi)
 
+    # 13-15. training
+    tiny_training_phase(dev, reset_counts, counts)
+    turbo_launches = turbo_finetune_phase(dev, reset_counts, counts, smi)
+    for name in ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"):
+        kernels[name]["launches"] = turbo_launches[name]
+    with tempfile.TemporaryDirectory(prefix="wealy_train_") as tmp:
+        train_cli_phase(tmp, dev, reset_counts, counts, smi)
+
     if FAILURES:
         say(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -331,12 +394,16 @@ def main() -> int:
     return 0
 
 
-def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed: int = 0):
+def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed: int = 0,
+                  train_cliques: int = 0, val_cliques: int = 0):
     """A lyric-covers project in the layout of tests/test_cli.py::project:
     CSVs (written with the stdlib csv module), a config, and per version an
     ``hs_last_seq`` of (T, 1280) fp16 with T drawn from 1000-2700 (1-18
     chunks of 1000 frames at overlap 0.9). Clique members are noisy copies
-    of one base sequence. Returns (config path, [(version id, clique)])."""
+    of one base sequence. ``n_cliques`` go to the test split, then
+    ``train_cliques`` and ``val_cliques`` of their own (drawn after the test
+    split's, which stays the same). Returns (config path, [(version id,
+    clique)] of the test split)."""
     import csv
 
     from wealy_tpu_torch.data.embedding_store import EmbeddingStore
@@ -346,23 +413,25 @@ def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed
     lc = os.path.join(root, "lc")
     os.makedirs(lc)
     store = EmbeddingStore(os.path.join(root, "hs"), "lyric-covers")
-    rows = []
-    for c in range(n_cliques):
-        base = torch.randn(2700, 1280, device=dev, generator=g)
-        for k in range(per_clique):
-            vid = 1000 + c * per_clique + k
-            T = int(rng.integers(1000, 2701))
-            emb = base[:T] + torch.randn(T, 1280, device=dev, generator=g)
-            store.save(str(vid), "hs_last_seq.npz", embeddings=emb.half().cpu().numpy())
-            rows.append((vid, f"c{c}"))
+    splits = {"test": [], "train": [], "val": []}
+    for split, count in (("test", n_cliques), ("train", train_cliques), ("val", val_cliques)):
+        for c in range(count):
+            base = torch.randn(2700, 1280, device=dev, generator=g)
+            for k in range(per_clique):
+                vid = 1000 + sum(map(len, splits.values())) + k
+                T = int(rng.integers(1000, 2701))
+                emb = base[:T] + torch.randn(T, 1280, device=dev, generator=g)
+                store.save(str(vid), "hs_last_seq.npz", embeddings=emb.half().cpu().numpy())
+            first = 1000 + sum(map(len, splits.values()))
+            splits[split] += [(first + k, f"{split}{c}") for k in range(per_clique)]
     header = ["original_id", "id", "is_cover", "song_text_type", "label"]
-    for split in ("train", "val", "test"):
+    for split, rows in splits.items():
         with open(os.path.join(lc, f"{split}_no_dup.csv"), "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(header)
-            if split == "test":
-                for i, (vid, label) in enumerate(rows):
-                    w.writerow([rows[i - i % per_clique][0], vid, i % per_clique > 0, "o", label])
+            for i, (vid, label) in enumerate(rows):
+                w.writerow([rows[i - i % per_clique][0], vid, i % per_clique > 0, "o", label])
+    rows = splits["test"]
     conf = {
         "path": {"lyric_covers_data": lc, "hidden_states": os.path.join(root, "hs"),
                  "cache": os.path.join(root, "cache")},
@@ -526,6 +595,202 @@ def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: 
         f"{smax}, zdim {zdim}, cos + K4 bpwr, blocks {blk}x{blk} resident: {wall:.2f} s, "
         f"{pairs / wall:.4g} pairs/s, peak {peak:.2f} GB; MAP {m['MAP']:.6f} MR1 {m['MR1']:.3f}; "
         f"first {nq} queries plain-redux ranks identical {same} | {smi}")
+
+
+TRAIN_KERNELS = ("flash_mha", "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "fused_mlp")
+
+
+def grad_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Cosine of two gradients as flat vectors (1.0 when both are zero)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0 and nb == 0:
+        return 1.0
+    return float((a @ b).item() / max(na * nb, 1e-300))
+
+
+def mel_batch(n: int, n_mels: int, generator, device) -> dict:
+    """n 30 s mel clips from a seed in cliques of 2; a per-clip, per-bin
+    offset keeps the clips' embeddings apart."""
+    mel = (torch.randn(n, n_mels, 3000, generator=generator, device=device) * 0.5
+           + torch.randn(n, n_mels, 1, generator=generator, device=device) * 0.5)
+    return {"emb": mel, "labels": torch.arange(n, device=device, dtype=torch.int32) // 2,
+            "ids": torch.arange(n, device=device, dtype=torch.int32)}
+
+
+def tiny_training_phase(dev, reset_counts, counts) -> None:
+    """13. whisper-tiny encoder + head, one clews step, card against CPU from
+    the same seeded weights and mel batch (B=4, 30 s)."""
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
+    from wealy_tpu_torch.train.finetune import EncoderHead, encoder_head_call
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import loss_and_grads, make_train_step
+
+    states, batches = {}, {}
+    cpu_batch = mel_batch(4, 80, torch.Generator().manual_seed(13), "cpu")
+    for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        whisper, cfg = load_whisper_model("tiny", seed=0, device="cpu", dtype=torch.bfloat16)
+        head = seeded_init_(ProjectionHead(cfg.n_audio_state, zdim=128, hidden=(256,)), seed=1)
+        model = EncoderHead(whisper.encoder, head).to(device)
+        states[where] = create_train_state(
+            model, make_optimizer(lr=1e-4, warmup_steps=1, max_steps=100), init=False)
+        batches[where] = {k: v.to(device) for k, v in cpu_batch.items()}
+    t0 = time.perf_counter()
+    l_cpu, _, g_cpu = loss_and_grads(states["cpu"], batches["cpu"], clews_loss, encoder_head_call)
+    cpu_s = time.perf_counter() - t0
+    l_card, _, g_card = loss_and_grads(states["card"], batches["card"], clews_loss,
+                                       encoder_head_call)
+    _, _, g_acc = loss_and_grads(states["card"], batches["card"], clews_loss, encoder_head_call,
+                                 grad_accum=2)
+    rel = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    cos_cpu = {n: grad_cosine(g_card[n].cpu(), g_cpu[n]) for n in g_cpu}
+    cos_acc = {n: grad_cosine(g_acc[n], g_card[n]) for n in g_card}
+    worst_cpu = min(cos_cpu, key=cos_cpu.get)
+    worst_acc = min(cos_acc, key=cos_acc.get)
+    check(rel <= 1e-2, f"phase 13 loss card {l_card.item():.6f} vs CPU {l_cpu.item():.6f}")
+    check(cos_cpu[worst_cpu] >= 0.99, f"phase 13 gradient cosine card vs CPU {worst_cpu} "
+          f"{cos_cpu[worst_cpu]:.6f} < 0.99")
+    check(cos_acc[worst_acc] >= 0.999, f"phase 13 grad_accum=2 gradient cosine {worst_acc} "
+          f"{cos_acc[worst_acc]:.6f} < 0.999")
+    step = make_train_step(None, clews_loss, model_call=encoder_head_call)
+    reset_counts()
+    state, ld = step(states["card"], batches["card"])
+    torch.cuda.synchronize()
+    launched = counts()
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS) and np.isfinite(float(ld["loss"])),
+          f"phase 13 train step launches {launched}, loss {float(ld['loss'])}")
+    say(f"[13 tiny training step] whisper-tiny encoder + ProjectionHead(128), B=4 30 s, clews: "
+        f"loss card {l_card.item():.6f} CPU {l_cpu.item():.6f} (rel {rel:.2e}); gradient cosine "
+        f"card vs CPU min {cos_cpu[worst_cpu]:.6f} ({worst_cpu}) over {len(cos_cpu)} parameters; "
+        f"grad_accum=2 vs single pass min {cos_acc[worst_acc]:.6f} ({worst_acc}); step "
+        f"launches {launched}; CPU loss+grads {cpu_s:.1f} s")
+
+
+def turbo_finetune_phase(dev, reset_counts, counts, smi: str) -> dict:
+    """14. large-v3-turbo encoder (32 layers, 1280 wide, 20 heads; bf16
+    compute, f32 masters) + ProjectionHead(zdim=512), AdamW, B=8 30 s clips
+    in 4 cliques of 2: a gradient check and a warm-up step, then 5 timed
+    steps. Returns the launch counts of the timed steps."""
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
+    from wealy_tpu_torch.train.finetune import EncoderHead, encoder_head_call
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import loss_and_grads, make_train_step
+
+    whisper, cfg = load_whisper_model("large-v3-turbo", seed=0, device=dev, dtype=torch.bfloat16)
+    head = seeded_init_(ProjectionHead(cfg.n_audio_state, zdim=512), seed=1)
+    model = EncoderHead(whisper.encoder, head.to(dev))
+    del whisper
+    state = create_train_state(model, make_optimizer(lr=1e-5, warmup_steps=1, max_steps=1000),
+                               init=False)
+    n_params = sum(t.numel() for t in state.params.values())
+    B = 8
+    batch = mel_batch(B, cfg.n_mels, torch.Generator(device=dev).manual_seed(14), dev)
+    step = make_train_step(None, clews_loss, model_call=encoder_head_call)
+    # gradient check (also the warm-up of cuBLAS/cuDNN plans)
+    loss0, _, grads = loss_and_grads(state, batch, clews_loss, encoder_head_call)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    nonzero = sum(bool(g.abs().max() > 0) for g in grads.values())
+    g_norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).item()
+    del grads
+    check(finite and np.isfinite(loss0.item()), f"phase 14 gradients finite {finite}, loss "
+          f"{loss0.item()}")
+    # warm-up step: step 0 runs at lr 0, the parameters stay
+    name = f"encoder.blocks.{cfg.n_audio_layer // 2}.attn.query.weight"
+    before = state.params[name].clone()
+    state, ld = step(state, batch)
+    check(torch.equal(state.params[name], before) and np.isfinite(float(ld["loss"])),
+          "phase 14 warm-up step (lr 0) moved the parameters or lost the loss")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(5):
+        state, ld = step(state, batch)
+        losses.append(ld["loss"])
+        if i == 0:
+            after1 = state.params[name].clone()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    masters_finite = all(bool(torch.isfinite(t).all()) for t in state.params.values())
+    check(np.isfinite(losses).all() and masters_finite,
+          f"phase 14 losses {losses}, parameters finite {masters_finite}")
+    check(not torch.equal(after1, before), "phase 14 parameters did not change after step 1")
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS), f"phase 14 launches {launched}")
+    say(f"[14 turbo fine-tune] large-v3-turbo encoder ({cfg.n_audio_layer} x {cfg.n_audio_state}, "
+        f"{cfg.n_audio_head} heads, bf16 compute, f32 masters, {n_params / 1e6:.1f} M parameters) + ProjectionHead(512), AdamW, clews, B={B} "
+        f"30 s clips: gradients finite {finite} ({nonzero}/{len(state.params)} nonzero, global "
+        f"norm {g_norm:.4g}); 5 steps {wall:.2f} s = {5 / wall:.3f} steps/s, {5 * B / wall:.2f} "
+        f"clips/s; peak {peak:.2f} GB; losses {[round(x, 6) for x in losses]}; launches "
+        f"{launched} | {smi}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return launched
+
+
+def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: int = 20) -> None:
+    """15. ``train --max-steps 20`` on the synthetic turbo-width project (a
+    train split of 16 cliques of 4, val 4 cliques, test 32 cliques), then
+    ``evaluate --checkpoint`` on the head it saved."""
+    t0 = time.perf_counter()
+    cpath, rows = write_project(tmp, dev, train_cliques=16, val_cliques=4)
+    setup_s = time.perf_counter() - t0
+    conf = json.load(open(cpath))
+    ckdir = os.path.join(tmp, "ckpt")
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    conf["path"]["checkpoints"] = ckdir
+    conf["train"] = {"loss": "clews", "batch_size": 16, "lr": 1e-3, "warmup_steps": 2,
+                     "max_steps": max_steps, "log_every": 0, "eval_every": max_steps,
+                     "checkpoint_every": 1000, "metrics_jsonl": metrics}
+    with open(cpath, "w") as f:
+        json.dump(conf, f)
+    import wealy_tpu_torch.train.step as tstep
+
+    make_step, n_calls = tstep.make_train_step, 0
+
+    def make_synced_step(*args, **kwargs):
+        """The CLI's step, synchronised after steps 2 and ``max_steps``: the
+        records' host stamps are taken when a step is enqueued, so the
+        rate's window ends only once the device has finished its steps."""
+        step = make_step(*args, **kwargs)
+
+        def synced(state, batch):
+            nonlocal n_calls
+            out = step(state, batch)
+            n_calls += 1
+            if n_calls in (2, max_steps):
+                torch.cuda.synchronize()
+            return out
+
+        return synced
+
+    reset_counts()
+    with mock.patch.object(tstep, "make_train_step", make_synced_step):
+        out, train_s = run_cli(["train", "--config", cpath, "--max-steps", str(max_steps)])
+    launched = counts()
+    recs = [json.loads(line) for line in open(metrics)]
+    steps = [r for r in recs if "loss" in r]
+    val = [r for r in recs if "val_MAP" in r]
+    # steady rate from step 2 to the last, both ends synchronised
+    rate = (len(steps) - 2) / (steps[-1]["t"] - steps[1]["t"])
+    check(out["final_step"] == max_steps and np.isfinite(out["final_loss"]) and len(val) == 1,
+          f"phase 15 train {out}, {len(val)} val records")
+    ev, ev_s = run_cli(["evaluate", "--config", cpath, "--split", "test", "--checkpoint", ckdir])
+    check(ev["n_queries"] == len(rows) and np.isfinite(ev["MAP"]),
+          f"phase 15 evaluate --checkpoint {ev}")
+    say(f"[15 train CLI] train --max-steps {max_steps} on 64 turbo-width versions (batch 16 x 2, "
+        f"chunk 1000 x 1280 fp16): {train_s:.2f} s, {rate:.2f} head-training steps/s (steps "
+        f"2-{max_steps}), "
+        f"final loss {out['final_loss']:.6f}, val MAP {val[0]['val_MAP']:.6f}; evaluate "
+        f"--checkpoint: MAP {ev['MAP']:.6f} MR1 {ev['MR1']:.4f} over {ev['n_queries']} versions "
+        f"({ev_s:.2f} s); launches {launched}; set-up {setup_s:.1f} s | {smi}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Card-only tests of the port's CUDA kernels. chip_smoke.py holds each kernel
 against its plain PyTorch version at the main path's shapes; these tests
 cover the edges it does not: a lone clip and a zero-padded tail (K1), one
-query or key and unequal query and key lengths (K2), one row and rows that
-fill no tile (K3), tiles of one row or the widest side and bpwr-n rounds
-(K4, bit-equal to its plain version), the launch counters, the shapes the
-kernels refuse, and the encoder's routing through K2 and K3. All use the
+query or key and unequal query and key lengths (K2, and the backward
+K5a/K5b with repeat calls bit-equal), one row and rows that fill no tile
+(K3), tiles of one row or the widest side and bpwr-n rounds (K4, bit-equal
+to its plain version), the launch counters, the shapes the kernels refuse,
+the encoder's routing through K2 and K3, and the gradient of a two-block
+bf16 encoder through K2/K5a/K5b/K3 against its plain path. All use the
 tolerances defined beside the kernels. Marked ``cuda``; each skips without
 a card.
 
@@ -23,10 +25,19 @@ from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.cli.extract import load_whisper_model
 from wealy_tpu_torch.models.whisper.model import Whisper
 from wealy_tpu_torch.eval.retrieval import song_distance_matrix
-from wealy_tpu_torch.ops import bf16_agreement
+from wealy_tpu_torch.ops import BF16_COS_MIN, BF16_GRAD_COS_MIN, bf16_agreement
+from wealy_tpu_torch.ops import flash_attention as fa
+from wealy_tpu_torch.ops import fused_mlp as fm
 from wealy_tpu_torch.ops.bpwr_redux import MAX_SIDE, _reference_bpwr_block, bpwr_block_redux
 from wealy_tpu_torch.parallel.similarity import streaming_relevant_ranks
-from wealy_tpu_torch.ops.flash_attention import _reference_mha, flash_mha
+from wealy_tpu_torch.ops.flash_attention import (
+    _reference_mha,
+    _reference_mha_grads,
+    flash_mha,
+    flash_mha_bwd_dkv,
+    flash_mha_bwd_dq,
+    flash_mha_fwd,
+)
 from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
 
 from _torch_parity import cuda_device, min_row_cosine, to_numpy
@@ -42,8 +53,8 @@ def dev():
     return device
 
 
-def _assert_bf16_close(got, want):
-    ok, err, cos = bf16_agreement(got, want)
+def _assert_bf16_close(got, want, cos_min=BF16_COS_MIN):
+    ok, err, cos = bf16_agreement(got, want, cos_min)
     assert ok, f"max abs {err:.3g}, min row cosine {cos:.6f}"
 
 
@@ -73,6 +84,79 @@ def test_flash_kernel_edges(dev, B, Tq, Tk, H):
     assert flash_mha.launches == before + 1
     assert got.shape == q.shape
     _assert_bf16_close(got, _reference_mha(q, k, v, 0.125))
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H", [(1, 1, 1, 1), (2, 17, 45, 2), (1, 65, 64, 3),
+                                        (1, 300, 129, 2)])
+def test_flash_backward_kernel_edges(dev, B, Tq, Tk, H):
+    """K5a/K5b against autograd of the plain attention, through the
+    autograd Function; repeat calls bit-equal."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, t, H, 64)).astype(np.float32)).to(dev)
+               .bfloat16().requires_grad_(True) for t in (Tq, Tk, Tk))
+    g = torch.from_numpy(rng.normal(size=(B, Tq, H, 64)).astype(np.float32)).to(dev).bfloat16()
+    before = (flash_mha.launches, flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches)
+    flash_mha(q, k, v, 0.125).backward(g)
+    assert (flash_mha.launches, flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    want = _reference_mha_grads(q, k, v, g, 0.125)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        if w.abs().max() > 0:  # one key: the softmax gradient is exactly 0
+            _assert_bf16_close(got, w, BF16_GRAD_COS_MIN)
+        else:  # the kernel's two row sums differ in order only
+            assert got.float().abs().max() < 1e-3
+    out, lse = flash_mha_fwd(q, k, v, 0.125, with_lse=True)
+    runs = [flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    runs = [flash_mha_bwd_dkv(q, k, v, g, lse, runs[0][1], 0.125) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_backward_kernels_refuse(dev):
+    q = torch.zeros(1, 300, 2, 64, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(1, 2, 300, device=dev)
+    with pytest.raises(ValueError, match="flash_mha_bwd_dq"):
+        flash_mha_bwd_dq(q, q, q, q, q.float(), lse, 0.125)  # f32 cotangent
+    with pytest.raises(ValueError, match="flash_mha_bwd_dkv"):
+        flash_mha_bwd_dkv(q, q[..., :32], q[..., :32], q, lse, lse, 0.125)
+
+
+def test_two_block_encoder_gradient_against_plain_path(dev, monkeypatch):
+    """A two-block bf16 encoder at T = 1500: every parameter's gradient
+    through K2/K5a/K5b/K3 against the same encoder on the card with every
+    wrapper routed to its plain version (cosine >= 0.99)."""
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wealy_tpu_torch.models.whisper.model import WhisperEncoder
+
+    cfg = WHISPER_CONFIGS["tiny"]
+    enc = WhisperEncoder(cfg, dtype=torch.bfloat16, device=dev)
+    enc.blocks = enc.blocks[:2]
+    g = torch.Generator(device=dev).manual_seed(9)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if p.dim() > 1 and name != "positional_embedding":
+                p.copy_(torch.randn(p.shape, device=dev, generator=g) * p[0].numel() ** -0.5)
+    mel = torch.randn(2, cfg.n_mels, 3000, device=dev, generator=g) * 0.5
+    # a fixed random readout: the output is LayerNorm'd, so a loss such as
+    # mean(out ** 2) is nearly constant and its gradient is rounding noise
+    readout = torch.randn(2, 1500, cfg.n_audio_state, device=dev, generator=g)
+
+    def grads():
+        enc.zero_grad()
+        (enc(mel).float() * readout).mean().backward()
+        return {n: p.grad.float().clone() for n, p in enc.named_parameters()}
+
+    before = (flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches, fused_mlp.launches)
+    got = grads()
+    assert (flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches, fused_mlp.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    monkeypatch.setattr(fa, "_kernel_route", lambda t: False)
+    monkeypatch.setattr(fm, "_kernel_route", lambda t: False)
+    want = grads()
+    for name in want:
+        cos = torch.nn.functional.cosine_similarity(got[name].flatten(), want[name].flatten(),
+                                                    dim=0).item()
+        assert cos >= 0.99, (name, cos)
 
 
 @pytest.mark.parametrize("N,D", [(1, 64), (65, 384)])

@@ -1,7 +1,7 @@
 """Package-level checks of the PyTorch port (wealy_tpu_torch): it imports no
 JAX (nor pandas, flax or orbax, which the card's machine lacks), its kernel
-wrappers count launches only when they launch, its build raises without
-nvcc, and chip_smoke.py refuses to run without a card."""
+wrappers (forward and backward) count launches only when they launch, its
+build raises without nvcc, and chip_smoke.py refuses to run without a card."""
 
 import os
 import pkgutil
@@ -20,7 +20,7 @@ from wealy_tpu_torch import _build
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.audio.mel import N_SAMPLES
 from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
-from wealy_tpu_torch.ops.flash_attention import flash_mha
+from wealy_tpu_torch.ops.flash_attention import flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq
 from wealy_tpu_torch.ops.fused_mlp import fused_mlp
 
 REPO = Path(__file__).resolve().parents[1]
@@ -43,6 +43,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "wealy_tpu_torch.models.whisper.extract" in mods
     assert "wealy_tpu_torch.cli.main" in mods
+    assert {"wealy_tpu_torch.losses.clews", "wealy_tpu_torch.train.step",
+            "wealy_tpu_torch.train.loop", "wealy_tpu_torch.train.checkpoint",
+            "wealy_tpu_torch.utils.prefetch"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,39 +84,49 @@ def test_forbidden_patterns_absent(pattern):
 
 
 def test_every_kernel_has_a_source_note():
-    for name in ("log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "bpwr_redux.cu"):
+    for name in ("log_mel.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused_mlp.cu",
+                 "bpwr_redux.cu"):
         head = (PKG / "csrc" / name).read_text()[:3000]
         assert "Replaces the TPU kernel wealy_tpu/" in head, name
         assert "What bounds it on an H100" in head, name
 
 
 def test_cpu_path_counts_no_launches():
-    counters = (log_mel_spectrogram_fused, flash_mha, fused_mlp, bpwr_block_redux)
+    counters = (log_mel_spectrogram_fused, flash_mha, flash_mha_bwd_dq, flash_mha_bwd_dkv,
+                fused_mlp, bpwr_block_redux)
     before = [f.launches for f in counters]
     rng = np.random.default_rng(0)
     log_mel_spectrogram_fused(torch.from_numpy(rng.normal(size=N_SAMPLES).astype(np.float32)))
     q = torch.from_numpy(rng.normal(size=(1, 8, 2, 64)).astype(np.float32)).bfloat16()
-    flash_mha(q, q, q, 0.125)
-    x = torch.zeros(3, 64, dtype=torch.bfloat16)
+    q.requires_grad_(True)
+    flash_mha(q, q, q, 0.125).float().sum().backward()
+    x = torch.zeros(3, 64, dtype=torch.bfloat16, requires_grad=True)
     w = torch.zeros(256, 64, dtype=torch.bfloat16)
-    fused_mlp(x, w, torch.zeros(256), w.T.contiguous(), torch.zeros(64))
+    fused_mlp(x, w, torch.zeros(256), w.T.contiguous(), torch.zeros(64)).float().sum().backward()
+    assert q.grad is not None and x.grad is not None
     d = torch.from_numpy(rng.uniform(size=(2, 3, 4, 5)).astype(np.float32))
     bpwr_block_redux(d, torch.ones(2, 4, dtype=torch.bool), torch.ones(3, 5, dtype=torch.bool))
     assert [f.launches for f in counters] == before
 
 
 def test_non_cuda_device_raises():
-    before = (flash_mha.launches, log_mel_spectrogram_fused.launches, bpwr_block_redux.launches)
+    before = (flash_mha.launches, log_mel_spectrogram_fused.launches, bpwr_block_redux.launches,
+              flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches)
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="flash_mha"):
         flash_mha(q, q, q, 0.125)
+    lse = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="flash_mha_bwd_dq"):
+        flash_mha_bwd_dq(q, q, q, q, q, lse, 0.125)
+    with pytest.raises(ValueError, match="flash_mha_bwd_dkv"):
+        flash_mha_bwd_dkv(q, q, q, q, lse, lse, 0.125)
     with pytest.raises(ValueError, match="log_mel"):
         log_mel_spectrogram_fused(torch.zeros(N_SAMPLES, device="meta"))
     valid = torch.ones(1, 2, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="bpwr_block_redux"):
         bpwr_block_redux(torch.zeros(1, 1, 2, 2, device="meta"), valid, valid)
-    assert (flash_mha.launches, log_mel_spectrogram_fused.launches,
-            bpwr_block_redux.launches) == before
+    assert (flash_mha.launches, log_mel_spectrogram_fused.launches, bpwr_block_redux.launches,
+            flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches) == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -127,10 +140,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_flags_and_source_hash():
     assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     names = {p.name for p in _build.sources()}
-    assert {"log_mel.cu", "flash_attention.cu", "fused_mlp.cu", "bpwr_redux.cu",
-            "common.cuh"} <= names
-    assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd", "wealy_fused_mlp",
-                                      "wealy_bpwr_redux"}
+    assert {"log_mel.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused_mlp.cu",
+            "bpwr_redux.cu", "common.cuh"} <= names
+    assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd",
+                                      "wealy_flash_mha_bwd_dq", "wealy_flash_mha_bwd_dkv",
+                                      "wealy_fused_mlp", "wealy_bpwr_redux"}
     assert "-shared" not in _build.NVCC_FLAGS  # one object per source, linked after
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()

@@ -44,8 +44,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # audio, wcos, wsin, melw, out, batch, n_samples, n_frames, n_mels, stream
     "wealy_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, batch, tq, tk, heads, head_dim, scale, stream
-    "wealy_flash_mha_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse (or null), batch, tq, tk, heads, head_dim, scale, stream
+    "wealy_flash_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, g, lse, delta, dq, batch, tq, tk, heads, head_dim, scale, stream
+    "wealy_flash_mha_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, g, lse, delta, dk, dv, batch, tq, tk, heads, head_dim, scale, stream
+    "wealy_flash_mha_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, hidden, out, rows, d_model, d_ff, stream
     "wealy_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # d, qvalid, cvalid, out, Q, B, s1, s2, stride_q, stride_b, stride_s1, stride_s2,

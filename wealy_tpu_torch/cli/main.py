@@ -1,17 +1,23 @@
-"""Command-line entry of the port: ``validate-data`` and ``evaluate``.
+"""Command-line entry of the port: ``validate-data``, ``train`` and ``evaluate``.
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
+    python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
-        [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint head.pt]
+        [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint PATH]
 
-The counterpart of ``wealy_tpu.cli.main`` for these two commands, with the
-JAX parser's evaluate flags. ``evaluate`` runs on the card when there is one
-(the head, the chunk distances, K4 and the rank passes), else on the CPU.
-``--checkpoint`` is a torch state-dict file of the head (the JAX package's
-orbax directories need JAX to read); without one the head is initialised
-from ``torch.Generator`` seed 0 (``models/heads.py::seeded_init_``), which
-is not the JAX package's init. Fusion models and ``--test-mode`` come with
-the CLEWS/fusion slice; ``--profile`` with ``utils/profiling.py``.
+The counterpart of ``wealy_tpu.cli.main`` for these commands, with the JAX
+parser's flags. Both run on the card when there is one, else on the CPU.
+``train`` trains the ``whisper`` head on stored embeddings with the
+configured loss (clews, ntxent, triplet), AdamW, ``train.grad_accum``, the
+val-split MAP hook every ``train.eval_every`` steps and ``torch.save``
+checkpoints in ``path.checkpoints`` (resumed unless ``--fresh``); it prints
+one JSON line. ``evaluate --checkpoint`` takes a head state-dict file, a
+``train`` checkpoint payload, or a checkpoint directory (its newest step);
+the JAX package's orbax directories need JAX to read. Without one the head
+is initialised from ``torch.Generator`` seed 0
+(``models/heads.py::seeded_init_``), which is not the JAX package's init.
+Fusion models and ``--test-mode`` come with the CLEWS/fusion slice;
+``--profile`` with ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import argparse
 import json
 import math
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -90,13 +97,22 @@ def cmd_validate_data(args) -> int:
 
 def load_head(config, in_features: int, checkpoint=None, device=None):
     """The evaluate head for ``config.model``: weights from ``checkpoint``
-    (a torch state-dict file) or seeded, in eval mode on ``device``."""
+    (a head state-dict file, a ``train`` payload file, or a checkpoint
+    directory whose newest payload is read) or seeded, in eval mode on
+    ``device``."""
     from wealy_tpu_torch.models.heads import seeded_init_
     from wealy_tpu_torch.models.registry import build_model
+    from wealy_tpu_torch.train.checkpoint import CheckpointManager
 
     model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=in_features)
     if checkpoint:
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True))
+        if Path(checkpoint).is_dir():
+            sd = CheckpointManager(checkpoint).restore()
+        else:
+            sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "params" in sd and "opt_state" in sd:  # a train payload
+            sd = sd["params"]
+        model.load_state_dict(sd)
     else:
         seeded_init_(model, seed=0)
     return model.to(device if device is not None else default_device()).eval()
@@ -147,6 +163,117 @@ def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 2
             all_sets.append(sets)
             all_masks.append(set_mask)
     return all_sets, all_masks, np.asarray(labels), np.asarray(ids)
+
+
+def make_val_eval_fn(config, model, val_ds, val_group: int = 256, device=None):
+    """Train-time validation hook: ``eval_fn(state) -> {MAP, MR1}`` over the
+    val split with the current head. Versions go through in fixed
+    ``val_group`` groups (first window of each, the last group padded by
+    repetition and the pad rows dropped), and the ranks stream
+    (``streaming_relevant_ranks``); host state is one group plus the
+    (S, zdim) matrix."""
+    from wealy_tpu_torch.data.chunking import collate_fixed_length
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+
+    v_versions = list(val_ds.sampler.versions)
+    val_group = max(1, min(val_group, len(v_versions)))
+    device = torch.device(device) if device is not None else default_device()
+
+    def eval_fn(state):
+        zs, lbls, vids = [], [], []
+        for g0 in range(0, len(v_versions), val_group):
+            items = [
+                (val_ds.sampler.labels[val_ds.sampler.clique_of[v]],
+                 [(int(val_ds.metadata.info[v]["id"]), val_ds.load_embedding(v))])
+                for v in v_versions[g0 : g0 + val_group]
+            ]
+            keep = len(items)
+            items = items + [items[0]] * (val_group - keep)
+            vb = collate_fixed_length(items, chunk_size=config.data.chunk_size,
+                                      use_random_chunks=False)
+            labels, ids, emb, mask = vb.flatten_versions()
+            with torch.no_grad():
+                z = model(torch.from_numpy(emb).to(device).float(),
+                          torch.from_numpy(mask).to(device))
+            zs.append(z.cpu().numpy()[:keep])
+            lbls.append(labels[:keep])
+            vids.append(ids[:keep])
+        z = np.concatenate(zs, axis=0)
+        labels = np.concatenate(lbls)
+        ids = np.concatenate(vids)
+        ranks, n_rel = streaming_relevant_ranks(z, z, labels, labels, mode="cos",
+                                                query_idx=ids, corpus_idx=ids, device=device)
+        m = map_from_ranks(ranks, n_rel)
+        return {"MAP": m["MAP"], "MR1": m["MR1"]}
+
+    return eval_fn
+
+
+def cmd_train(args) -> int:
+    """Train the head on stored embeddings; one JSON line
+    ``{"final_step", "final_loss"}``."""
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.losses import get_loss
+    from wealy_tpu_torch.models.registry import build_model, check_model_name
+    from wealy_tpu_torch.train.checkpoint import CheckpointManager
+    from wealy_tpu_torch.train.loop import MetricsWriter, fit
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import make_train_step
+
+    config = _load_config(args.config)
+    check_model_name(config.model.name)
+    device = default_device()
+    torch.autograd.set_detect_anomaly(bool(config.train.debug_nans))
+    loss_fn = get_loss(config.train.loss, **(config.train.loss_params or {}))
+    ds = EmbeddingDataset(config, "train", seed=config.train.seed)
+    _, versions = ds[0]
+    emb_dim = versions[0][1].shape[-1]
+    model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=emb_dim)
+    state = create_train_state(
+        model.to(device),
+        tx=make_optimizer(lr=config.train.lr, weight_decay=config.train.weight_decay,
+                          warmup_steps=config.train.warmup_steps,
+                          max_steps=config.train.max_steps),
+        seed=config.train.seed,
+    )
+    step = make_train_step(model, loss_fn, grad_accum=config.train.grad_accum)
+    ckpt = CheckpointManager(config.path.checkpoints) if config.path.checkpoints else None
+    start_epoch = start_batch = 0
+    if ckpt is not None and ckpt.latest_step() is not None and not args.fresh:
+        state = ckpt.restore_state(state)
+        dstate = ckpt.restore_data_state(state.step) or {}
+        if (dstate.get("data_seed") == config.train.seed
+                and int(dstate.get("batch_size", -1)) == int(config.train.batch_size)):
+            start_epoch = int(dstate.get("epoch", 0))
+            start_batch = int(dstate.get("next_batch", 0))
+        print(f"resumed full state from step {state.step} (epoch {start_epoch}, batch "
+              f"{start_batch})", file=sys.stderr)
+    eval_fn = None
+    val_ds = EmbeddingDataset(config, "val", seed=0)
+    if len(val_ds) >= 4:
+        val_group = int(config.train.val_group) or max(4, int(config.train.batch_size))
+        eval_fn = make_val_eval_fn(config, model, val_ds, val_group=val_group, device=device)
+    writer = MetricsWriter(log_every=config.train.log_every,
+                           jsonl_path=config.train.metrics_jsonl or None)
+    state, writer = fit(
+        state, step, ds.sampler,
+        batch_size=config.train.batch_size,
+        chunk_size=config.data.chunk_size,
+        max_steps=args.max_steps or config.train.max_steps,
+        writer=writer,
+        checkpoint_manager=ckpt,
+        checkpoint_every=config.train.checkpoint_every,
+        eval_fn=eval_fn,
+        eval_every=config.train.eval_every,
+        data_seed=config.train.seed,
+        start_epoch=start_epoch,
+        start_batch=start_batch,
+    )
+    writer.close()
+    # the last record may be a val_* entry: report the last train loss
+    last = next((h for h in reversed(writer.history) if "loss" in h), {})
+    print(json.dumps({"final_step": int(state.step), "final_loss": last.get("loss")}))
+    return 0
 
 
 def evaluate(args, device=None) -> dict:
@@ -211,11 +338,19 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--check-audio", action="store_true")
     v.set_defaults(fn=cmd_validate_data)
 
+    tr = sub.add_parser("train", help="train the head on stored embeddings")
+    tr.add_argument("--config", required=True)
+    tr.add_argument("--max-steps", type=int, default=None)
+    tr.add_argument("--fresh", action="store_true",
+                    help="ignore existing checkpoints in path.checkpoints")
+    tr.set_defaults(fn=cmd_train)
+
     ev = sub.add_parser("evaluate", help="MAP/MR1 retrieval evaluation")
     ev.add_argument("--config", required=True)
     ev.add_argument("--split", default="test")
     ev.add_argument("--checkpoint", default=None,
-                    help="torch state-dict file of the head (default: seeded init)")
+                    help="head state-dict file, train payload, or checkpoint directory "
+                    "(default: seeded init)")
     ev.add_argument("--redux", default="bpwr")
     ev.add_argument(
         "--no-streaming", action="store_true",

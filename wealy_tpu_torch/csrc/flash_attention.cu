@@ -20,6 +20,11 @@
 // through shared memory because WMMA fragments have an opaque layout.
 // This first version has no cp.async/TMA pipelining and no wgmma.
 //
+// With a non-null `lse` the kernel also writes each query row's
+// log-sum-exp of the scaled scores, f32 (B, H, Tq): the softmax statistic
+// that the backward kernels K5a/K5b (flash_attention_bwd.cu) recompute the
+// probabilities from. Inference passes null and writes nothing more.
+//
 // Layout: q, k, v and out are read and written in the natural
 // (B, T, H, Dh) layout (row stride H*Dh), as the TPU kernel does. The
 // ragged key tail (1500 is not a multiple of 64) is zero-filled in shared
@@ -67,8 +72,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int t0, in
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int tq, int tk,
-                 int heads, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int tq, int tk, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.z;
@@ -175,16 +180,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dst = out + (static_cast<size_t>(b) * tq + t) * row_stride + h * DH + c0;
 #pragma unroll
     for (int j = 0; j < 32; ++j) dst[j] = __float2bfloat16(o_w[r * LDS + c0 + j] / l_i);
+    if (lse != nullptr && c0 == 0) {
+      lse[(static_cast<size_t>(b) * heads + h) * tq + t] = m_i + logf(l_i);
+    }
   }
 }
 
 }  // namespace
 
 // q (batch, tq, heads, head_dim), k/v (batch, tk, heads, head_dim), out like q;
-// all bf16 and contiguous; head_dim must be 64.
+// all bf16 and contiguous; head_dim must be 64. lse: null, or f32
+// (batch, heads, tq) for the row log-sum-exp.
 WEALY_API int wealy_flash_mha_fwd(const void* q, const void* k, const void* v, void* out,
-                                  int batch, int tq, int tk, int heads, int head_dim,
-                                  float scale, void* stream) {
+                                  void* lse, int batch, int tq, int tk, int heads,
+                                  int head_dim, float scale, void* stream) {
   if (head_dim != DH || tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
@@ -193,6 +202,6 @@ WEALY_API int wealy_flash_mha_fwd(const void* q, const void* k, const void* v, v
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
   flash_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), tq, tk, heads, scale);
+      static_cast<bf16*>(out), static_cast<float*>(lse), tq, tk, heads, scale);
   return cudaGetLastError();
 }

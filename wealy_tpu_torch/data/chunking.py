@@ -1,12 +1,18 @@
-"""Evaluation collates with static output shapes, copied from
-``wealy_tpu.data.chunking`` (the training collates come with the training
-slice).
+"""Collates with static output shapes, copied from
+``wealy_tpu.data.chunking``.
 
-- :func:`collate_overlapping`: overlapping windows per song (stride =
+- :func:`collate_fixed_length` (train / val): one window of ``chunk_size``
+  frames per version, random (train) or the first (val), zero-padded with a
+  mask; the SBERT (one step) and CLEWS (fixed shape) overrides; dtype
+  preserving (an fp16 store collates to fp16). :meth:`Batch.flatten_versions`
+  gives the (B * n, ...) layout the losses consume.
+- :func:`collate_overlapping` (test): overlapping windows per song (stride =
   chunk_size - int(chunk_size * overlap)), the chunk count padded to a
   multiple of ``chunk_bucket`` with a chunk-valid mask; ``chunk_info`` rows
   (batch_idx, version_idx, chunk_idx) regroup chunks per song.
 - :func:`collate_avg_pool`: time collapsed to one vector per version.
+- :func:`select_wealy_chunk`: the WEALY chunk axis (train random, val
+  first, test all).
 """
 
 from __future__ import annotations
@@ -28,6 +34,59 @@ def _embed_dim(items: Sequence[Item]) -> int:
     raise ValueError("all embeddings in batch are None")
 
 
+def select_wealy_chunk(
+    wealy: np.ndarray, mode: str, rng: Optional[np.random.Generator] = None
+) -> np.ndarray:
+    """(n_chunks, 512) -> train 'random' one chunk (512,), val
+    'deterministic' the first chunk, test 'all' every chunk."""
+    wealy = np.asarray(wealy)
+    if wealy.ndim == 1:
+        wealy = wealy[None]
+    if mode == "random":
+        if wealy.shape[0] == 1:
+            return wealy[0]
+        if rng is None:
+            raise ValueError("mode='random' needs an rng")
+        return wealy[int(rng.integers(0, wealy.shape[0]))]
+    if mode == "deterministic":
+        return wealy[0]
+    if mode == "all":
+        return wealy
+    raise ValueError(f"unknown WEALY chunking mode: {mode!r}")
+
+
+def chunk_embedding(
+    emb: Optional[np.ndarray],
+    chunk_size: int,
+    mode: str,
+    embed_dim: int,
+    rng: Optional[np.random.Generator] = None,
+    dtype=np.float32,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One (T, C) embedding -> ((chunk_size, C) in ``dtype``, (chunk_size,)
+    True=valid): mode 'random' a random full window when T > chunk_size,
+    'first' the prefix; shorter sequences zero-padded; None all-invalid."""
+    out = np.zeros((chunk_size, embed_dim), dtype)
+    mask = np.zeros((chunk_size,), bool)
+    if emb is None:
+        return out, mask
+    emb = np.asarray(emb)
+    T = emb.shape[0]
+    if T <= chunk_size:
+        out[:T] = emb
+        mask[:T] = True
+    elif mode == "random":
+        if rng is None:
+            raise ValueError("mode='random' needs an rng")
+        start = int(rng.integers(0, T - chunk_size + 1))
+        out[:] = emb[start : start + chunk_size]
+        mask[:] = True
+    else:  # first
+        out[:] = emb[:chunk_size]
+        mask[:] = True
+    return out, mask
+
+
 @dataclasses.dataclass
 class Batch:
     """Fixed-shape batch: (B,) cliques, (B, n) version ids, embeddings and
@@ -37,6 +96,65 @@ class Batch:
     version_ids: np.ndarray
     embeddings: np.ndarray
     masks: np.ndarray
+
+    def flatten_versions(self):
+        """-> (z_label (B*n,), z_idx (B*n,), emb (B*n, ...), mask (B*n, ...)),
+        the layout the losses consume (labels repeat per version)."""
+        B, n = self.version_ids.shape
+        labels = np.repeat(self.clique_ids, n)
+        idx = self.version_ids.reshape(-1)
+        emb = self.embeddings.reshape(B * n, *self.embeddings.shape[2:])
+        mask = self.masks.reshape(B * n, *self.masks.shape[2:])
+        return labels, idx, emb, mask
+
+
+def _fixed_length_for(items: Sequence[Item], chunk_size: int,
+                      embedding_type: str) -> Tuple[int, int, np.dtype]:
+    """(length, embed_dim, alloc dtype) with the SBERT / CLEWS fixed-shape
+    overrides; the dtype is the first embedding's float dtype (f32 for
+    non-float sources)."""
+    first = next((np.asarray(emb) for _, versions in items for _, emb in versions
+                  if emb is not None), None)
+    if first is None:
+        raise ValueError("all embeddings in batch are None")
+    embed_dim = first.shape[-1]
+    dt = first.dtype if np.issubdtype(first.dtype, np.floating) else np.dtype(np.float32)
+    if first.shape[0] == 1:  # sbert-like
+        return 1, embed_dim, dt
+    if embedding_type == "clews":  # fixed (16, 2048)
+        return first.shape[0], embed_dim, dt
+    return chunk_size, embed_dim, dt
+
+
+def collate_fixed_length(
+    items: Sequence[Item],
+    chunk_size: int = 1000,
+    use_random_chunks: bool = False,
+    embedding_type: str = "whisper",
+    rng: Optional[np.random.Generator] = None,
+) -> Batch:
+    """Train / val collate: one fixed window per version."""
+    B = len(items)
+    n = len(items[0][1])
+    L, C, edt = _fixed_length_for(items, chunk_size, embedding_type)
+    mode = "random" if use_random_chunks else "first"
+    clique_ids = np.empty((B,), np.int64)
+    version_ids = np.zeros((B, n), np.int64)
+    embeddings = np.zeros((B, n, L, C), edt)
+    masks = np.zeros((B, n, L), bool)
+    for i, (label, versions) in enumerate(items):
+        clique_ids[i] = label
+        for j, (vid, emb) in enumerate(versions):
+            version_ids[i, j] = vid
+            if emb is not None and np.asarray(emb).shape[0] == 1:
+                embeddings[i, j, 0] = np.asarray(emb)[0]
+                masks[i, j, 0] = True
+            elif embedding_type == "clews" and emb is not None:
+                embeddings[i, j, :] = np.asarray(emb)
+                masks[i, j, :] = True
+            else:
+                embeddings[i, j], masks[i, j] = chunk_embedding(emb, L, mode, C, rng, dtype=edt)
+    return Batch(clique_ids, version_ids, embeddings, masks)
 
 
 def collate_avg_pool(items: Sequence[Item]) -> Batch:

@@ -1,5 +1,6 @@
-"""Clique-positive sampling, a copy of ``wealy_tpu.data.sampler`` (the
-seekable ``epoch_batches`` stream comes with the training slice).
+"""Clique-positive sampling, a copy of ``wealy_tpu.data.sampler``, with the
+seekable ``epoch_batches`` stream of training (batch b of epoch e is a pure
+function of (seed, e, b)).
 
 Split-local clique -> int labels with cross-split offsets (val labels start
 after train's count, test after val's); per anchor ``n_per_class - 1``
@@ -92,3 +93,21 @@ class CliqueSampler:
 
     def n_batches(self, batch_size: int) -> int:
         return len(self.versions) // batch_size
+
+    def epoch_batches(
+        self, epoch: int, batch_size: int, start_batch: int = 0
+    ) -> Iterator[tuple]:
+        """Seekable deterministic epoch stream: the epoch order comes from
+        ``default_rng([seed, epoch])`` and every batch's positive and chunk
+        draws from ``default_rng([seed, epoch, b])``, so exact resume needs
+        only (epoch, next_batch). Yields ``(b, batch_rng, items)``;
+        ``batch_rng`` carries the rest of the batch's stream for the
+        collate. The incomplete last batch is dropped."""
+        order = np.arange(len(self.versions))
+        np.random.default_rng([self.seed, epoch]).shuffle(order)
+        for b in range(start_batch, len(order) // batch_size):
+            rng = np.random.default_rng([self.seed, epoch, b])
+            keep, self.rng = self.rng, rng  # sample_item draws from the batch stream
+            items = [self.sample_item(int(i)) for i in order[b * batch_size : (b + 1) * batch_size]]
+            self.rng = keep
+            yield b, rng, items

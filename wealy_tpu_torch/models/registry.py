@@ -17,15 +17,21 @@ MODEL_NAMES = (
 )
 
 
-def build_model(name: str, zdim: int = 512, in_features: int = 1280, **kwargs):
-    """(module, call signature) for ``conf.model.name``; ``"single"`` means
-    ``(emb, mask) -> z``. ``in_features`` is the embedding width (flax
-    infers it at init; torch needs it to build the first convolution)."""
+def check_model_name(name: str) -> None:
+    """Raise unless the port builds ``name`` (only ``whisper`` so far)."""
     if name == "whisper":
-        return ProjectionHead(in_features, zdim=zdim, **kwargs), "single"
+        return
     if name in MODEL_NAMES:
         raise NotImplementedError(
             f"model {name!r} is a CLEWS/fusion model; the port builds it with the "
             "CLEWS/fusion slice"
         )
     raise KeyError(f"unknown model name {name!r}; available: {MODEL_NAMES}")
+
+
+def build_model(name: str, zdim: int = 512, in_features: int = 1280, **kwargs):
+    """(module, call signature) for ``conf.model.name``; ``"single"`` means
+    ``(emb, mask) -> z``. ``in_features`` is the embedding width (flax
+    infers it at init; torch needs it to build the first convolution)."""
+    check_model_name(name)
+    return ProjectionHead(in_features, zdim=zdim, **kwargs), "single"

@@ -5,7 +5,8 @@ counterpart of ``wealy_tpu.models.whisper.convert``.
   HF ``WhisperModel`` one, renamed by :func:`state_dict_from_hf`).
 - :func:`state_dict_from_jax_params` turns a wealy_tpu JAX param tree
   (numpy leaves, ``block_i`` or scanned ``blocks/block`` layout) into the
-  port's state dict: the weight bridge of the parity tests.
+  port's state dict: the weight bridge of the parity tests
+  (:func:`encoder_state_dict_from_jax_params` for an encoder alone).
 
 Every function returns f32 tensors; ``Whisper.load_state_dict`` casts the
 Dense and conv weights to the model's compute dtype.
@@ -128,19 +129,26 @@ def _blocks(section) -> list:
     return [section[f"block_{i}"] for i in range(n)]
 
 
-def state_dict_from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
-    """wealy_tpu ``{"encoder": ..., "decoder": ...}`` params (numpy or jax
-    leaves) -> the port's f32 state dict."""
-    enc, dec = params["encoder"], params["decoder"]
+def encoder_state_dict_from_jax_params(enc: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A wealy_tpu ``WhisperEncoder``'s params -> the f32 state dict of the
+    port's ``WhisperEncoder`` (names prefixed with ``prefix``)."""
     sd: dict[str, torch.Tensor] = {}
     for i in (1, 2):
         # flax Conv kernel (k, in, out) -> torch Conv1d weight (out, in, k)
-        sd[f"encoder.conv{i}.weight"] = _t(enc[f"conv{i}"]["kernel"]).permute(2, 1, 0).contiguous()
-        sd[f"encoder.conv{i}.bias"] = _t(enc[f"conv{i}"]["bias"])
-    sd["encoder.positional_embedding"] = _t(enc["positions"])
+        sd[f"{prefix}conv{i}.weight"] = _t(enc[f"conv{i}"]["kernel"]).permute(2, 1, 0).contiguous()
+        sd[f"{prefix}conv{i}.bias"] = _t(enc[f"conv{i}"]["bias"])
+    sd[f"{prefix}positional_embedding"] = _t(enc["positions"])
     for i, p in enumerate(_blocks(enc)):
-        _block(p, f"encoder.blocks.{i}", sd)
-    _ln(enc["ln_post"], "encoder.ln_post", sd)
+        _block(p, f"{prefix}blocks.{i}", sd)
+    _ln(enc["ln_post"], f"{prefix}ln_post", sd)
+    return sd
+
+
+def state_dict_from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
+    """wealy_tpu ``{"encoder": ..., "decoder": ...}`` params (numpy or jax
+    leaves) -> the port's f32 state dict."""
+    dec = params["decoder"]
+    sd = encoder_state_dict_from_jax_params(params["encoder"], "encoder.")
 
     sd["decoder.token_embedding.weight"] = _t(dec["token_embedding"])
     sd["decoder.positional_embedding"] = _t(dec["positional_embedding"])

@@ -7,7 +7,8 @@ Parameter names follow openai-whisper (``encoder.blocks.N.attn.query``,
 JAX model:
 
 - Dense and conv weights are stored in the compute dtype (Flax casts its
-  f32 params at every call, which rounds identically); LayerNorm params, the
+  f32 params at every call, which rounds identically; training keeps f32
+  master copies beside them, ``train/state.py``); LayerNorm params, the
   MLP biases (the fused kernel adds them in f32), the token and position
   embeddings and the encoder position table stay f32.
 - LayerNorm runs in f32 and is cast back; attention logits and softmax are
@@ -173,10 +174,10 @@ class WhisperEncoder(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.conv1 = nn.Conv1d(config.n_mels, D, 3, padding=1, **kw)
         self.conv2 = nn.Conv1d(D, D, 3, stride=2, padding=1, **kw)
-        # a loaded table (checkpoint or exact host numpy), never recomputed on device
-        self.register_buffer(
-            "positional_embedding",
-            torch.from_numpy(sinusoids(config.n_audio_ctx, D)).to(device),
+        # a loaded table (checkpoint or exact host numpy), never recomputed on
+        # device; a parameter, as in the JAX model, so training updates it
+        self.positional_embedding = nn.Parameter(
+            torch.from_numpy(sinusoids(config.n_audio_ctx, D)).to(device)
         )
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(D, config.n_audio_head, dtype=dtype, device=device)
@@ -325,6 +326,8 @@ class Whisper(nn.Module):
                 p.zero_()
             elif id(p) in ln_weights:
                 p.fill_(1.0)
+            elif name == "encoder.positional_embedding":
+                p.copy_(torch.from_numpy(sinusoids(*p.shape)))
             else:
                 if name == "decoder.token_embedding.weight":
                     std = 0.02

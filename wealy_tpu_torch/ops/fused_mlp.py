@@ -1,9 +1,13 @@
 """Transformer MLP gelu(x @ W1 + b1) @ W2 + b2: kernel K3
 (``csrc/fused_mlp.cu``), the counterpart of ``wealy_tpu.ops.fused_mlp``
-(forward only).
+(a ``jax.custom_vjp``).
 
 Weights are in torch's nn.Linear layout: ``w1`` (4D, D), ``w2`` (D, 4D);
-the JAX function takes their transposes. :func:`fused_mlp` takes the plain
+the JAX function takes their transposes. :func:`fused_mlp` is a
+``torch.autograd.Function`` when a gradient is needed: its forward is K3
+and its backward is autograd of :func:`_reference_mlp` recomputed from the
+saved inputs, the JAX package's own policy (no backward kernel). Under
+``torch.no_grad()`` it runs the forward alone. The forward takes the plain
 version :func:`_reference_mlp` for a CPU tensor and launches the kernel for
 a CUDA tensor (bf16 x/w, f32 biases, D and 4D multiples of 64), raising on
 anything else.
@@ -25,10 +29,13 @@ def _reference_mlp(x, w1, b1, w2, b2):
     return (h.float() @ w2.float().T + b2.float()).to(x.dtype)
 
 
-def fused_mlp(x, w1, b1, w2, b2):
-    """(..., D) -> (..., D)."""
-    if x.device.type == "cpu":
-        return _reference_mlp(x, w1, b1, w2, b2)
+def _kernel_route(t: torch.Tensor) -> bool:
+    """The wrapper launches the kernel unless the tensor lies on the CPU."""
+    return t.device.type != "cpu"
+
+
+def _launch_mlp(x, w1, b1, w2, b2):
+    """K3 on (..., D) bf16 CUDA x."""
     D = x.shape[-1]
     Dff = w1.shape[0]
     if (
@@ -55,9 +62,8 @@ def fused_mlp(x, w1, b1, w2, b2):
     N = xr.shape[0]
     hidden = torch.empty((N, Dff), dtype=x.dtype, device=x.device)
     out = torch.empty((N, D), dtype=x.dtype, device=x.device)
-    lib = _build.library()
     _build.check(
-        lib.wealy_fused_mlp(
+        _build.library().wealy_fused_mlp(
             xr.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             hidden.data_ptr(), out.data_ptr(), N, D, Dff, _build.stream(x.device),
         ),
@@ -65,6 +71,42 @@ def fused_mlp(x, w1, b1, w2, b2):
     )
     fused_mlp.launches += 1
     return out.reshape(shape)
+
+
+def fused_mlp_fwd(x, w1, b1, w2, b2):
+    """The forward alone: K3, or the plain version for a CPU tensor."""
+    if not _kernel_route(x):
+        return _reference_mlp(x, w1, b1, w2, b2)
+    return _launch_mlp(x, w1, b1, w2, b2)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """K3 forward; backward = autograd of _reference_mlp on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return fused_mlp_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = _reference_mlp(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """(..., D) -> (..., D); differentiable in every argument."""
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w1, b1, w2, b2)
+    ):
+        return _FusedMLP.apply(x, w1, b1, w2, b2)
+    return fused_mlp_fwd(x, w1, b1, w2, b2)
 
 
 fused_mlp.launches = 0

@@ -95,7 +95,7 @@ class PathConfig:
     shs_splits: Optional[str] = None  # SHS100K-{TRAIN,VAL,TEST} dir
     lyric_covers_data: Optional[str] = None
     discogs_vi_data: Optional[str] = None
-    checkpoints: Optional[str] = None  # the JAX package's orbax dir (not read by the port)
+    checkpoints: Optional[str] = None  # train checkpoints (torch.save payloads in the port)
 
 
 @dataclasses.dataclass
@@ -147,7 +147,7 @@ class TrainConfig:
     eval_every: int = 1000
     val_group: int = 0  # val-hook streaming group size; 0 = max(4, batch_size)
     checkpoint_every: int = 1000
-    debug_nans: bool = False  # enable jax_debug_nans + per-step finite checks
+    debug_nans: bool = False  # the port's train: torch.autograd anomaly detection
     metrics_jsonl: str = ""  # when set, MetricsWriter appends one JSON
     # record per step to this path (SURVEY.md §5.5 metrics persistence)
 
