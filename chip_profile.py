@@ -21,7 +21,11 @@ Five pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
 - one large-v3-turbo fine-tuning step (chip_smoke.py phase 14): the
   encoder (bf16 compute, f32 masters) + ProjectionHead(512), clews, AdamW,
   B=8 30 s clips. Before the trace, the untraced host-clock time of the
-  forward + backward and of the whole step is printed, three runs each.
+  forward + backward and of the whole step is printed, three runs each;
+- one Q=16 exact-scan ``search_many`` of the serving engine over a
+  10,547-version index (chip_smoke.py phase 18: f16 sets, smax 18, zdim
+  512, turbo-width queries through the 512-wide head), after two warm-up
+  batches.
 
 For each trace it prints the host wall of the traced region, the device busy
 time (the union of the intervals of kernels, copies and sets), the idle
@@ -163,6 +167,8 @@ def main() -> int:
         profile_evaluate(tmp, dev, activities, out)
     profile_ranking(dev, activities, out)
     profile_finetune(dev, activities, out)
+    with tempfile.TemporaryDirectory(prefix="wealy_profile_serve_") as tmp:
+        profile_serving(tmp, dev, activities, out)
     print(smi, flush=True)
     return 0
 
@@ -177,11 +183,11 @@ def profile_evaluate(tmp: str, dev, activities, out: Path) -> None:
 
     cpath, _ = write_project(tmp, dev)
     args = ["evaluate", "--config", cpath, "--split", "test", "--redux", "bpwr"]
-    evaluate(build_parser().parse_args(args), device=dev)  # warm-up: cuDNN plans, caches
+    evaluate(build_parser().parse_args(args))  # warm-up: cuDNN plans, caches
     config = Config.from_file(cpath)
     ds = EmbeddingDataset(config, "test")
     versions = list(ds.sampler.versions)
-    head = load_head(config, 1280, None, dev)
+    head, _ = load_head(config, 1280, None, dev)
     t = {"load": 0.0, "collate": 0.0, "head": 0.0}
     sets_all, masks_all, labels, ids = [], [], [], []
     t_all = time.perf_counter()
@@ -214,7 +220,7 @@ def profile_evaluate(tmp: str, dev, activities, out: Path) -> None:
           flush=True)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        evaluate(build_parser().parse_args(args), device=dev)
+        evaluate(build_parser().parse_args(args))
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report("evaluate_128_turbo", prof, wall, out)
@@ -277,6 +283,32 @@ def profile_finetune(dev, activities, out: Path, B: int = 8) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report(f"turbo_finetune_step_B{B}", prof, wall, out, top=20)
+
+
+def profile_serving(tmp: str, dev, activities, out: Path, n: int = 10547, smax: int = 18,
+                    zdim: int = 512, Q: int = 16) -> None:
+    from chip_smoke import serving_config, write_index
+    from wealy_tpu_torch.cli.serve import QueryEngine
+    from wealy_tpu_torch.train.config import Config
+
+    rng = np.random.default_rng(18)
+    mask = np.arange(smax)[None, :] < rng.integers(1, smax + 1, n)[:, None]
+    sets = (rng.normal(size=(n, smax, zdim)) * mask[..., None]).astype(np.float16)
+    idx = os.path.join(tmp, "shs.npz")
+    write_index(idx, sets, mask, np.arange(n) // 2, 1280, 1000, 0.9)
+    del sets
+    eng = QueryEngine(Config.from_file(serving_config(tmp)), idx, None, device=dev)
+    seqs = [(rng.normal(size=(int(T), 1280)) * 0.5).astype(np.float32)
+            for T in rng.integers(1000, 2701, Q)]
+    for _ in range(2):
+        eng.search_many(seqs, k=10)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        eng.search_many(seqs, k=10)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(f"serving_exact_Q{Q}_x_{n}", prof, wall, out)
 
 
 if __name__ == "__main__":

@@ -15,10 +15,23 @@ times chunk-set bpwr ranking at SHS100K-TEST scale, then trains: a
 whisper-tiny encoder+head step on the card against the CPU (phase 13), the
 large-v3-turbo encoder + ProjectionHead(512) fine-tuned at full width and
 depth (phase 14), and ``train`` then ``evaluate --checkpoint`` through the
-CLI on the synthetic project (phase 15). Every phase prints one line. At
-the end come the card's name and power limit, then the kernel summary as
-JSON, then the result as JSON on the last line. Any failed check exits
-nonzero without the result line. Refuses to run without CUDA.
+CLI on the synthetic project (phase 15). Then K6 (LayerNorm) against its
+plain version and LayerNormFused's gradients (phase 16), and serving: the
+``index``/``query`` CLI on the phase-10 project, card against CPU and every
+engine mode (phase 17), an exact-scan engine over a 10,547-version index
+(SHS100K-TEST scale) with its latency, batched rate, rerank, int8 and the
+ranks of 16 queries against the plain redux (phase 18), the ``serve``
+daemon under 8 concurrent clients with a ``/reload`` (phase 19), and raw
+WAV queries at large-v3-turbo and whisper-tiny (phase 20). Every kernel is
+timed beside its plain version, its bound (the larger of its bytes over
+3.35 TB/s and its operations over the peak rate of their type) and, where
+one PyTorch call computes the same function, that call. Each main-path
+phase counts the launches of every kernel it drives: the kernel summary
+keeps them by phase (``launches_by_phase``) and their sum (``launches``).
+Every phase prints one line. At the end come the card's name and power
+limit, then the kernel summary as JSON, then the result as JSON on the last
+line. Any failed check
+exits nonzero without the result line. Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,10 +49,22 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 FAILURES: list[str] = []
 # the kernels of the extraction path (phases 6-7); K4 runs on the evaluate path (phase 10)
 EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp")
+# an H100 SXM's published peaks (dense), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the operations over the peak rate of ``kind``,
+    and which of the two it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS_PER_S[kind]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check(ok: bool, what: str) -> bool:
@@ -72,6 +98,32 @@ def min_row_cos(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a, b, dim=-1, eps=1e-30).min().item()
 
 
+def log_mel_bound(audio, out, melw) -> tuple[float, str]:
+    """K1's bound on an FFT route: one read of the audio and of the
+    filterbank's nonzeros, one write of the log-mel; per frame, the window
+    (1 per sample), a real FFT of N_FFT points (2.5 N log2 N), the power
+    spectrum (3 per bin), the mel product over the filterbank's nonzeros (2
+    each: a sparse product) and the log (1 per mel bin)."""
+    from wealy_tpu_torch.audio import mel as tmel
+
+    nnz = int((melw != 0).sum())
+    frames = out.shape[0] * out.shape[-1]
+    per_frame = (tmel.N_FFT + 2.5 * tmel.N_FFT * math.log2(tmel.N_FFT) + 3 * tmel.N_FREQS
+                 + 2 * nnz + out.shape[1])
+    return bound(audio.numel() * 4 + nnz * 4 + out.numel() * 4, frames * per_frame, "f32")
+
+
+def bpwr_bound(d, qvalid, cvalid) -> tuple[float, str]:
+    """K4's bound on this data: one read of the (Q, B, s1, s2) f32 tile and
+    the masks, one write of the (Q, B) result; per pair, one knockout round
+    for each row and column pair it removes (min of the valid rows and
+    columns, without ties), each round two compare passes over the tile."""
+    Q, B, s1, s2 = d.shape
+    rounds = torch.minimum(qvalid.sum(1)[:, None], cvalid.sum(1)[None, :]).double().sum().item()
+    return bound(d.numel() * 4 + qvalid.numel() + cvalid.numel() + Q * B * 4,
+                 rounds * 2 * s1 * s2, "f32")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -98,6 +150,7 @@ def main() -> int:
     )
     from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
     from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block, bpwr_block_redux
+    from wealy_tpu_torch.ops import layer_norm as tln
 
     # plain versions and decode logits are f32 products: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,17 +179,31 @@ def main() -> int:
 
     kernels = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, shape):
-        """The first shape recorded is the kernel's headline (its times and
-        shape go into the summary); max_abs_err covers every shape."""
+    def record(name, source, replaces, err, ms, plain_ms, shape, bnd, library_ms=None):
+        """The first shape recorded is the kernel's headline (its times,
+        bound and shape go into the summary); max_abs_err covers every
+        shape. ``bnd`` is (bound ms, "bytes" or "operations")."""
         k = kernels.setdefault(name, {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "shape": shape,
+            "launches": 0, "launches_by_phase": {}, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, "shape": shape,
         })
         k["max_abs_err"] = max(k["max_abs_err"], err)
 
-    # 3. K1 log-mel against its plain version (f32, TF32 off)
+    def fmt_bound(bnd, library_ms, library="library") -> str:
+        lib = f"{library_ms:.3f} ms" if library_ms is not None else "none"
+        return f"; bound {bnd[0]:.4f} ms ({bnd[1]}), {library} {lib}"
+
+    # 3. K1 log-mel against its plain version (f32, TF32 off); the library
+    # call is a torch.stft log-mel, counted only where it holds K1's tolerance
     audio = torch.randn(8, tmel.N_SAMPLES, device=dev, generator=gen) * 0.1
+    window = torch.hann_window(tmel.N_FFT, device=dev)
+
+    def stft_log_mel(a, n_mels):
+        spec = torch.stft(a, tmel.N_FFT, tmel.HOP_LENGTH, window=window, return_complex=True)
+        mel = tmel.bases(n_mels, dev)[2].T @ spec[..., :-1].abs().square()
+        return tmel.finish_log_mel(torch.log10(torch.clamp_min(mel, 1e-10)))
+
     for n_mels in (80, 128):
         got = log_mel_spectrogram_fused(audio, n_mels)
         want = tmel.log_mel_spectrogram(audio, n_mels)
@@ -146,10 +213,18 @@ def main() -> int:
                    f"{fused_mel.ATOL} (max abs {err:.3g})")
         ms = cuda_ms(lambda: log_mel_spectrogram_fused(audio, n_mels), 20)
         plain = cuda_ms(lambda: tmel.log_mel_spectrogram(audio, n_mels), 20)
+        lib_err = (stft_log_mel(audio, n_mels) - want).abs().max().item()
+        lib_ok = torch.allclose(stft_log_mel(audio, n_mels), want, rtol=fused_mel.RTOL,
+                                atol=fused_mel.ATOL)
+        lib = cuda_ms(lambda: stft_log_mel(audio, n_mels), 20) if lib_ok else None
+        bnd = log_mel_bound(audio, got, tmel.bases(n_mels, dev)[2])
         say(f"[3 K1 log_mel] B=8 n_mels={n_mels}: max_abs_err {err:.3g} "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms"
+            + fmt_bound(bnd, lib, "torch.stft mel") + f" (its max abs {lib_err:.3g}, "
+            f"{'within' if lib_ok else 'outside'} K1's tolerance)")
         record("log_mel", "wealy_tpu_torch/csrc/log_mel.cu",
-               "wealy_tpu/audio/pallas_mel.py:40", err, ms, plain, f"B=8 n_mels={n_mels}")
+               "wealy_tpu/audio/pallas_mel.py:40", err, ms, plain, f"B=8 n_mels={n_mels}", bnd,
+               lib)
 
     # 4. K2 attention against _reference_mha (bf16)
     for B, T, H in ((4, 1500, 6), (2, 1500, 20), (2, 257, 6)):
@@ -160,10 +235,15 @@ def main() -> int:
         check(ok, f"K2 B={B} T={T} H={H}: cos {cos:.6f} max abs {err:.3g}")
         ms = cuda_ms(lambda: flash_mha(q, k, v, 0.125), 20)
         plain = cuda_ms(lambda: _reference_mha(q, k, v, 0.125), 20)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, T, Dh) views
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125), 20)
+        bnd = bound(4 * q.numel() * 2, 4 * B * H * T * T * 64, "bf16")
         say(f"[4 K2 flash_mha] B={B} T={T} H={H} Dh=64: max_abs_err {err:.3g} min_cos "
-            f"{cos:.6f} {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+            f"{cos:.6f} {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms"
+            + fmt_bound(bnd, lib, "F.scaled_dot_product_attention"))
         record("flash_mha", "wealy_tpu_torch/csrc/flash_attention.cu",
-               "wealy_tpu/ops/flash_attention.py:56", err, ms, plain, f"B={B} T={T} H={H} Dh=64")
+               "wealy_tpu/ops/flash_attention.py:56", err, ms, plain, f"B={B} T={T} H={H} Dh=64",
+               bnd, lib)
 
     # 5. K3 MLP against _reference_mlp (bf16 operands, f32 biases)
     for D in (384, 1280):
@@ -178,10 +258,13 @@ def main() -> int:
             check(ok, f"K3 D={D} N={N}: cos {cos:.6f} max abs {err:.3g}")
             ms = cuda_ms(lambda: fused_mlp(x, w1, b1, w2, b2), 10)
             plain = cuda_ms(lambda: _reference_mlp(x, w1, b1, w2, b2), 10)
+            bnd = bound(2 * N * D * 2 + 2 * 4 * D * D * 2 + 5 * D * 4, 2 * 2 * N * D * 4 * D,
+                        "bf16")
             say(f"[5 K3 fused_mlp] N={N} D={D}: max_abs_err {err:.3g} min_cos {cos:.6f} "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms"
+                + fmt_bound(bnd, None))
             record("fused_mlp", "wealy_tpu_torch/csrc/fused_mlp.cu",
-                   "wealy_tpu/ops/fused_mlp.py:44", err, ms, plain, f"N={N} D={D}")
+                   "wealy_tpu/ops/fused_mlp.py:44", err, ms, plain, f"N={N} D={D}", bnd)
     # 9. K4 bpwr against its plain version (bit-equal by design; bound 1e-6)
     def bpwr_case(shape, view=False, p_invalid=0.2, ties=False):
         Q, B, s1, s2 = shape
@@ -220,14 +303,16 @@ def main() -> int:
                    f"K4 {label} {shape}: max abs {err:.3g}, repeat bit-equal {same}, "
                    f"excluded pairs zero {zero_rows}")
         ms = plain = None  # timed at the headline shape, which record() keeps
+        bnd = bpwr_bound(d, qv, cv)
         if label == "headline":
             ms = cuda_ms(lambda: bpwr_block_redux(d, qv, cv), 20)
             plain = cuda_ms(lambda: _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12), 5)
         say(f"[9 K4 bpwr_redux] {label} Q,B,s1,s2={shape}: max_abs_err {err:.3g}, bit-equal "
             f"{bool(err == 0)}, repeat bit-equal {same} {'ok' if ok else 'FAIL'}"
-            + (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms" if ms is not None else ""))
+            + (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms" + fmt_bound(bnd, None)
+               if ms is not None else ""))
         record("bpwr_redux", "wealy_tpu_torch/csrc/bpwr_redux.cu",
-               "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}")
+               "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}", bnd)
     del d, qv, cv
 
     # 12. K5a/K5b against autograd of _reference_mha (bf16): dQ, dK, dV
@@ -258,23 +343,75 @@ def main() -> int:
         ms_dq = cuda_ms(lambda: flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125), 10)
         ms_dkv = cuda_ms(lambda: flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125), 10)
         pms_dq, pms_dkv = cuda_ms(plain_dq, 5), cuda_ms(plain_dkv, 5)
+        # the library call: SDPA's backward, dq, dk and dv together (K5a + K5b)
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            sdpa = F.scaled_dot_product_attention(*leaves, scale=0.125)
+        gt = g.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True), 10)
         shape = f"B={B} T={T} H={H} Dh=64"
+        size = q.numel() * 2
+        rows = B * H * T * 4  # f32 lse or delta
+        bnd_dq = bound(5 * size + rows + size + rows, 3 * 2 * B * H * T * T * 64, "bf16")
+        bnd_dkv = bound(4 * size + 2 * rows + 2 * size, 4 * 2 * B * H * T * T * 64, "bf16")
         say(f"[12 K5a/K5b attention backward] {shape}: dq/dk/dv max_abs_err "
             f"{agree[0][1]:.3g}/{agree[1][1]:.3g}/{agree[2][1]:.3g} min_cos "
             f"{agree[0][2]:.6f}/{agree[1][2]:.6f}/{agree[2][2]:.6f}, repeat bit-equal {same} "
-            f"{'ok' if ok else 'FAIL'}; K5a {ms_dq:.3f} ms (plain dq {pms_dq:.3f} ms), K5b "
-            f"{ms_dkv:.3f} ms (plain dk+dv {pms_dkv:.3f} ms)")
+            f"{'ok' if ok else 'FAIL'}; K5a {ms_dq:.3f} ms (plain dq {pms_dq:.3f} ms, bound "
+            f"{bnd_dq[0]:.4f} ms {bnd_dq[1]}), K5b {ms_dkv:.3f} ms (plain dk+dv {pms_dkv:.3f} ms, "
+            f"bound {bnd_dkv[0]:.4f} ms {bnd_dkv[1]}); SDPA backward (dq+dk+dv) {lib:.3f} ms")
         record("flash_mha_bwd_dq", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
-               "wealy_tpu/ops/flash_attention.py:171", agree[0][1], ms_dq, pms_dq, shape)
+               "wealy_tpu/ops/flash_attention.py:171", agree[0][1], ms_dq, pms_dq, shape, bnd_dq,
+               lib)
         record("flash_mha_bwd_dkv", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
                "wealy_tpu/ops/flash_attention.py:197", max(agree[1][1], agree[2][1]), ms_dkv,
-               pms_dkv, shape)
-    del q, k, v, g, out, lse, dq, dk, dv, dq2, dk2, dv2, want, plain_dq, plain_dkv
+               pms_dkv, shape, bnd_dkv, lib)
+    del q, k, v, g, out, lse, dq, dk, dv, dq2, dk2, dv2, want, plain_dq, plain_dkv, sdpa, leaves
     torch.cuda.empty_cache()
+
+    # 16. K6 against _reference_ln at the JAX docstring's shape, turbo width,
+    # a ragged row count and f32; the library call is F.layer_norm, which
+    # refuses bf16 input with f32 weights on the card, so it runs on the f32
+    # upcast and casts back
+    for shape, dtype in (((64, 1500, 384), torch.bfloat16), ((8, 1500, 1280), torch.bfloat16),
+                         ((4507, 1280), torch.bfloat16), ((3, 70, 384), torch.float32)):
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        scale = torch.randn(shape[-1], device=dev, generator=gen) + 1
+        bias = torch.randn(shape[-1], device=dev, generator=gen)
+        got, want = tln.fused_layer_norm(x, scale, bias), tln._reference_ln(x, scale, bias, 1e-5)
+        tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
+        err = (got.float() - want.float()).abs().max().item()
+        # representable bf16 steps between kernel and plain outputs, where
+        # |plain| >= 1/8 (nearer 0 the affine transform cancels, and an f32
+        # difference of 1e-7 spans many of bf16's fine steps there)
+        big = want.float().abs() >= 0.125
+        ulps = (got.view(torch.int16).int() - want.view(torch.int16).int())[big].abs().max().item() \
+            if dtype == torch.bfloat16 else 0
+        ok = check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                   f"K6 {tuple(shape)} {dtype}: max abs {err:.3g} outside rtol/atol {tol}")
+        ms = cuda_ms(lambda: tln.fused_layer_norm(x, scale, bias), 20)
+        plain = cuda_ms(lambda: tln._reference_ln(x, scale, bias, 1e-5), 20)
+        D = shape[-1]
+        if dtype == torch.float32:
+            lib = cuda_ms(lambda: F.layer_norm(x, (D,), scale, bias, 1e-5), 20)
+        else:
+            lib = cuda_ms(lambda: F.layer_norm(x.float(), (D,), scale, bias, 1e-5).to(dtype), 20)
+        bnd = bound(2 * x.numel() * x.element_size() + 2 * D * 4, 8 * x.numel(), "f32")
+        say(f"[16 K6 layer_norm] {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3g}"
+            + (f" (at most {ulps} bf16 ulps apart where |plain| >= 1/8)"
+               if dtype == torch.bfloat16 else "")
+            + f" {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+            + fmt_bound(bnd, lib, "F.layer_norm" + (" on the f32 upcast" if dtype != torch.float32
+                                                    else "")))
+        record("layer_norm", "wealy_tpu_torch/csrc/layer_norm.cu",
+               "wealy_tpu/ops/layer_norm.py:26", err, ms, plain, f"{tuple(shape)} {dtype}", bnd,
+               lib)
+    del x, got, want
 
     counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
                 "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
-                "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux}
+                "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux,
+                "layer_norm": tln.fused_layer_norm}
 
     def reset_counts():
         for fn in counters.values():
@@ -282,6 +419,20 @@ def main() -> int:
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def tally(phase: str, launched: dict) -> None:
+        """Each kernel's launches in one main-path run (counts set to 0
+        just before it, read just after): the kernels line keeps them by
+        phase, and ``launches`` is their sum."""
+        for name, n in launched.items():
+            if n:
+                k = kernels[name]
+                k["launches_by_phase"][phase] = n
+                k["launches"] = sum(k["launches_by_phase"].values())
+
+    # 16 (main path). LayerNormFused, forward and backward, on the card
+    # against autograd of the plain version (f32: rtol 1e-5, atol 1e-6)
+    tally("16 LayerNormFused", layer_norm_module_phase(dev, gen, reset_counts, counts))
 
     # 6. whisper-tiny slice, card against CPU, the same seeded weights
     cpu_model, cfg = load_whisper_model("tiny", seed=0, device="cpu", dtype=torch.bfloat16)
@@ -295,6 +446,7 @@ def main() -> int:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     tiny_counts = counts()
+    tally("6 whisper-tiny extract_song", tiny_counts)
     t0 = time.perf_counter()
     cpu = extract_song(cpu_model, clip, cfg, kinds=kinds, max_len=64)
     cpu_s = time.perf_counter() - t0
@@ -347,8 +499,7 @@ def main() -> int:
     say(f"[7 turbo slice] 2 songs x 3 chunks: x_concat {[o['x_concat'].shape for o in outs]} "
         f"hs_last_seq {[o['hs_last_seq'].shape for o in outs]}; {6 / turbo_s:.2f} clips/s "
         f"({turbo_s:.2f} s, max_len 64); peak {peak_gb:.2f} GB; launches {turbo_counts}")
-    for name in EXTRACT_KERNELS:
-        kernels[name]["launches"] = turbo_counts[name]
+    tally("7 large-v3-turbo extract_song", turbo_counts)
     del model
 
     # 8. throughput: whisper-tiny mel + encoder + mean pool, B=64 (bench.py's metric)
@@ -367,20 +518,32 @@ def main() -> int:
     del model, batch
     torch.cuda.empty_cache()
 
-    # 10. evaluate through the CLI at full width on a synthetic project
+    # 10. evaluate through the CLI at full width on a synthetic project;
+    # 17. the serving CLI on the same project
     with tempfile.TemporaryDirectory(prefix="wealy_eval_") as tmp:
-        evaluate_phase(tmp, dev, reset_counts, counts, kernels)
+        cpath, rows, eval_counts = evaluate_phase(tmp, dev, reset_counts, counts)
+        tally("10 evaluate CLI", eval_counts)
+        tally("17 index + query CLI", serving_cli_phase(tmp, cpath, rows, reset_counts, counts))
 
     # 11. chunk-set bpwr ranking at SHS100K-TEST scale
-    ranking_phase(dev, smi)
+    tally("11 SHS-scale ranking", ranking_phase(dev, smi, reset_counts, counts))
 
     # 13-15. training
-    tiny_training_phase(dev, reset_counts, counts)
-    turbo_launches = turbo_finetune_phase(dev, reset_counts, counts, smi)
-    for name in ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"):
-        kernels[name]["launches"] = turbo_launches[name]
+    tally("13 whisper-tiny train step", tiny_training_phase(dev, reset_counts, counts))
+    tally("14 large-v3-turbo fine-tune", turbo_finetune_phase(dev, reset_counts, counts, smi))
     with tempfile.TemporaryDirectory(prefix="wealy_train_") as tmp:
-        train_cli_phase(tmp, dev, reset_counts, counts, smi)
+        tally("15 train + evaluate CLI", train_cli_phase(tmp, dev, reset_counts, counts, smi))
+
+    # 18-20. serving at SHS100K-TEST scale, the daemon, raw-audio queries
+    with tempfile.TemporaryDirectory(prefix="wealy_serve_") as tmp:
+        tally("18 serving Q=1 scans", serving_scale_phase(tmp, dev, reset_counts, counts, smi))
+        tally("19 serve daemon", daemon_phase(tmp, reset_counts, counts, smi))
+        audio_launches = audio_query_phase(tmp, dev, reset_counts, counts, smi)
+        tally("20 query --audio", audio_launches)
+    for name in ("log_mel", "flash_mha", "fused_mlp"):
+        check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
+    for k in kernels.values():
+        check(k["launches"] > 0, f"{k['name']} was launched on no main path {k['launches_by_phase']}")
 
     if FAILURES:
         say(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -445,9 +608,9 @@ def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed
     return cpath, rows
 
 
-def run_cli(argv) -> tuple[dict, float]:
+def run_cli_lines(argv) -> tuple[list, float]:
     """``python -m wealy_tpu_torch.cli.main <argv>`` in-process: (the JSON
-    line it prints, wall seconds)."""
+    lines it prints, wall seconds)."""
     from wealy_tpu_torch.cli.main import main as cli_main
 
     out = io.StringIO()
@@ -457,10 +620,16 @@ def run_cli(argv) -> tuple[dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli {argv} exit {rc}")
-    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+    return [json.loads(line) for line in out.getvalue().strip().splitlines()], wall
 
 
-def evaluate_phase(tmp: str, dev, reset_counts, counts, kernels) -> None:
+def run_cli(argv) -> tuple[dict, float]:
+    """Like :func:`run_cli_lines`: (the last JSON line, wall seconds)."""
+    lines, wall = run_cli_lines(argv)
+    return lines[-1], wall
+
+
+def evaluate_phase(tmp: str, dev, reset_counts, counts):
     from wealy_tpu_torch.cli.main import build_parser, embed_split, evaluate, load_head
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.train.config import Config
@@ -474,7 +643,6 @@ def evaluate_phase(tmp: str, dev, reset_counts, counts, kernels) -> None:
     mono, mono_s = run_cli(base)
     streamed, streamed_s = run_cli(base + ["--streaming", "--chunk-sets"])
     eval_counts = counts()
-    kernels["bpwr_redux"]["launches"] = eval_counts["bpwr_redux"]
     keys = ("MAP", "MR1", "P@10", "n_queries")
     check(all(mono[k] == streamed[k] for k in keys),
           f"evaluate monolithic {mono} != streamed {streamed}")
@@ -497,15 +665,16 @@ def evaluate_phase(tmp: str, dev, reset_counts, counts, kernels) -> None:
     with open(sub_conf, "w") as f:
         json.dump(conf, f)
     args = build_parser().parse_args(["evaluate", "--config", sub_conf, "--split", "test"])
-    card_m = evaluate(args, device=dev)
+    card_m = evaluate(args)
     t1 = time.perf_counter()
-    cpu_m = evaluate(build_parser().parse_args(["evaluate", "--config", sub_conf]), device="cpu")
+    cpu_m = evaluate(build_parser().parse_args(["evaluate", "--config", sub_conf, "--device",
+                                                "cpu"]))
     cpu_s = time.perf_counter() - t1
     config = Config.from_file(sub_conf)
     ds = EmbeddingDataset(config, "test")
     z = {}
     for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        head = load_head(config, 1280, None, device)
+        head, _ = load_head(config, 1280, None, device)
         sets, masks, _, _ = embed_split(config, ds, head, device=device)
         z[where] = sets[0][masks[0]]
     zcos = min_row_cos(torch.from_numpy(z["card"]), torch.from_numpy(z["cpu"]))
@@ -518,12 +687,15 @@ def evaluate_phase(tmp: str, dev, reset_counts, counts, kernels) -> None:
         f"{all(mono[k] == streamed[k] for k in keys)}; launches {eval_counts}; 16-version "
         f"subset card {card_m['MAP']:.6f} == CPU {cpu_m['MAP']:.6f} (CPU {cpu_s:.1f} s), "
         f"{z['card'].shape[0]} chunk z cos {zcos:.7f}; set-up {setup_s:.1f} s")
+    return cpath, rows, eval_counts
 
 
-def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: int = 512):
+def ranking_phase(dev, smi: str, reset_counts, counts, n_versions: int = 10547, smax: int = 18,
+                  zdim: int = 512) -> dict:
     """streaming_relevant_ranks with chunk-set bpwr at the size of
     SHS100K-TEST (10,547 versions), the resident corpus, every query; the
-    first 64 queries re-ranked with the plain redux in the same blocks."""
+    first 64 queries re-ranked with the plain redux in the same blocks.
+    Returns the launch counts of the ranking."""
     from wealy_tpu_torch.cli.main import _set_block_size
     from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block
     from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
@@ -553,6 +725,7 @@ def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: 
     blk = _set_block_size(smax)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     ranks, n_rel = streaming_relevant_ranks(
         sets, sets, labels, labels, mode="cos", redux="bpwr", query_mask=mask, corpus_mask=mask,
@@ -560,6 +733,7 @@ def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: 
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launched = counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     m = map_from_ranks(ranks, n_rel, topk=(10,))
 
@@ -594,7 +768,9 @@ def ranking_phase(dev, smi: str, n_versions: int = 10547, smax: int = 18, zdim: 
     say(f"[11 ranking] {n_versions} versions (all queried), {len(sizes)} cliques of 2-12, smax "
         f"{smax}, zdim {zdim}, cos + K4 bpwr, blocks {blk}x{blk} resident: {wall:.2f} s, "
         f"{pairs / wall:.4g} pairs/s, peak {peak:.2f} GB; MAP {m['MAP']:.6f} MR1 {m['MR1']:.3f}; "
-        f"first {nq} queries plain-redux ranks identical {same} | {smi}")
+        f"first {nq} queries plain-redux ranks identical {same}; K4 launches "
+        f"{launched['bpwr_redux']} | {smi}")
+    return launched
 
 
 TRAIN_KERNELS = ("flash_mha", "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "fused_mlp")
@@ -618,9 +794,10 @@ def mel_batch(n: int, n_mels: int, generator, device) -> dict:
             "ids": torch.arange(n, device=device, dtype=torch.int32)}
 
 
-def tiny_training_phase(dev, reset_counts, counts) -> None:
+def tiny_training_phase(dev, reset_counts, counts) -> dict:
     """13. whisper-tiny encoder + head, one clews step, card against CPU from
-    the same seeded weights and mel batch (B=4, 30 s)."""
+    the same seeded weights and mel batch (B=4, 30 s). Returns the launch
+    counts of the step."""
     from wealy_tpu_torch.cli.extract import load_whisper_model
     from wealy_tpu_torch.losses import clews_loss
     from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
@@ -666,6 +843,7 @@ def tiny_training_phase(dev, reset_counts, counts) -> None:
         f"card vs CPU min {cos_cpu[worst_cpu]:.6f} ({worst_cpu}) over {len(cos_cpu)} parameters; "
         f"grad_accum=2 vs single pass min {cos_acc[worst_acc]:.6f} ({worst_acc}); step "
         f"launches {launched}; CPU loss+grads {cpu_s:.1f} s")
+    return launched
 
 
 def turbo_finetune_phase(dev, reset_counts, counts, smi: str) -> dict:
@@ -735,10 +913,11 @@ def turbo_finetune_phase(dev, reset_counts, counts, smi: str) -> dict:
     return launched
 
 
-def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: int = 20) -> None:
+def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: int = 20) -> dict:
     """15. ``train --max-steps 20`` on the synthetic turbo-width project (a
     train split of 16 cliques of 4, val 4 cliques, test 32 cliques), then
-    ``evaluate --checkpoint`` on the head it saved."""
+    ``evaluate --checkpoint`` on the head it saved. Returns the launch
+    counts of both commands."""
     t0 = time.perf_counter()
     cpath, rows = write_project(tmp, dev, train_cliques=16, val_cliques=4)
     setup_s = time.perf_counter() - t0
@@ -774,7 +953,6 @@ def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: in
     reset_counts()
     with mock.patch.object(tstep, "make_train_step", make_synced_step):
         out, train_s = run_cli(["train", "--config", cpath, "--max-steps", str(max_steps)])
-    launched = counts()
     recs = [json.loads(line) for line in open(metrics)]
     steps = [r for r in recs if "loss" in r]
     val = [r for r in recs if "val_MAP" in r]
@@ -783,6 +961,7 @@ def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: in
     check(out["final_step"] == max_steps and np.isfinite(out["final_loss"]) and len(val) == 1,
           f"phase 15 train {out}, {len(val)} val records")
     ev, ev_s = run_cli(["evaluate", "--config", cpath, "--split", "test", "--checkpoint", ckdir])
+    launched = counts()
     check(ev["n_queries"] == len(rows) and np.isfinite(ev["MAP"]),
           f"phase 15 evaluate --checkpoint {ev}")
     say(f"[15 train CLI] train --max-steps {max_steps} on 64 turbo-width versions (batch 16 x 2, "
@@ -791,6 +970,426 @@ def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: in
         f"final loss {out['final_loss']:.6f}, val MAP {val[0]['val_MAP']:.6f}; evaluate "
         f"--checkpoint: MAP {ev['MAP']:.6f} MR1 {ev['MR1']:.4f} over {ev['n_queries']} versions "
         f"({ev_s:.2f} s); launches {launched}; set-up {setup_s:.1f} s | {smi}")
+    return launched
+
+
+def layer_norm_module_phase(dev, gen, reset_counts, counts) -> dict:
+    """16 (main path). LayerNormFused(1280) forward and backward on an f32
+    (8, 1500, 1280) input and forward on its bf16 cast, the gradients
+    against autograd of the plain version. Returns the launch counts."""
+    from wealy_tpu_torch.models.layers import LayerNormFused
+    from wealy_tpu_torch.ops.layer_norm import _reference_ln
+
+    mod = LayerNormFused(1280).to(dev)
+    with torch.no_grad():
+        mod.scale.copy_(torch.randn(1280, device=dev, generator=gen) + 1)
+        mod.bias.copy_(torch.randn(1280, device=dev, generator=gen))
+    x = torch.randn(8, 1500, 1280, device=dev, generator=gen).requires_grad_()
+    r = torch.randn(8, 1500, 1280, device=dev, generator=gen)
+    reset_counts()
+    (mod(x) * r).sum().backward()
+    with torch.no_grad():
+        y16 = mod(x.detach().bfloat16())
+    torch.cuda.synchronize()
+    launched = counts()
+    leaves = [t.detach().requires_grad_() for t in (x, mod.scale, mod.bias)]
+    (_reference_ln(*leaves, 1e-5) * r).sum().backward()
+    errs = [(got - want.grad).abs().max().item()
+            for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves)]
+    ok = check(all(torch.allclose(got, want.grad, rtol=1e-5, atol=1e-6)
+                   for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves))
+               and y16.dtype == torch.bfloat16 and launched["layer_norm"] == 2,
+               f"phase 16 LayerNormFused gradients max abs {errs}, launches {launched}")
+    say(f"[16 LayerNormFused] (8, 1500, 1280) f32 forward + backward and bf16 forward on the "
+        f"card: gradient max abs x/scale/bias {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} against "
+        f"autograd of the plain version {'ok' if ok else 'FAIL'}; K6 launches "
+        f"{launched['layer_norm']}")
+    return launched
+
+
+def same_rankings(got, want, atol: float, k: int = None) -> tuple[bool, float]:
+    """Payload lists with the same version keys in the same order (the
+    first ``k`` of each) and scores within ``atol``: (agree, max score
+    difference)."""
+    worst, agree = 0.0, len(got) == len(want)
+    for g, w in zip(got, want):
+        gk = [r["version_key"] for r in g["results"]][:k]
+        wk = [r["version_key"] for r in w["results"]][:k]
+        agree = agree and gk == wk
+        diff = np.abs(np.subtract([r["score"] for r in g["results"]][:k],
+                                  [r["score"] for r in w["results"]][:k])).max(initial=0.0)
+        worst = max(worst, float(diff))
+    return agree and worst <= atol, worst
+
+
+def serving_cli_phase(tmp: str, cpath: str, rows, reset_counts, counts) -> dict:
+    """17. ``index`` of the phase-10 project, then ``query
+    --query-embeddings`` of 16 versions' stored sequences: card against CPU,
+    resident against ``--no-resident``, ``--rerank 3``, ``--pooled``,
+    ``--quantize int8``. Returns the launch counts of ``index`` and the
+    resident card ``query``."""
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+
+    idx = os.path.join(tmp, "serve", "test.npz")
+    reset_counts()
+    out, index_s = run_cli(["index", "--config", cpath, "--split", "test", "--out", idx])
+    check(out["indexed"] == len(rows) and out["sets"], f"phase 17 index {out}")
+    store = EmbeddingStore(os.path.join(tmp, "hs"), "lyric-covers")
+    vids = [str(v) for v, _ in rows[:16]]
+    files = [str(store.path(v, "hs_last_seq.npz")) for v in vids]
+
+    def query(*flags, k=10):
+        return run_cli_lines(["query", "--config", cpath, "--index", idx, "--k", str(k), *flags,
+                              "--query-embeddings", *files])
+
+    card, card_s = query()
+    launched = counts()
+    cpu, cpu_s = query("--device", "cpu")
+    host, host_s = query("--no-resident")
+    rerank, _ = query("--rerank", "3")
+    pooled, _ = query("--pooled")
+    f16_4, _ = query(k=4)
+    int8_4, _ = query("--quantize", "int8", k=4)
+    ok_cpu, d_cpu = same_rankings(card, cpu, 1e-4)
+    ok_host, d_host = same_rankings(card, host, 1e-4)
+    check(ok_cpu, f"phase 17 card vs CPU rankings differ (max score difference {d_cpu:.3g})")
+    check(ok_host, f"phase 17 resident vs --no-resident differ ({d_host:.3g})")
+    self_top = all(o["results"][0]["version_key"] == v for o, v in zip(card, vids))
+    pooled_top = all(o["results"][0]["version_key"] == v and o["scoring"] == "pooled_cosine"
+                     for o, v in zip(pooled, vids))
+    exact = [{r["version_key"]: r["score"] for r in o["results"]} for o in card]
+    rr_ok = all(o.get("rerank") == 3 and len(o["results"]) == 3
+                and o["results"][0]["version_key"] == v
+                and all(abs(r["score"] - e[r["version_key"]]) <= 1e-4
+                        for r in o["results"] if r["version_key"] in e)
+                for o, v, e in zip(rerank, vids, exact))
+    d_int8, int8_ok = 0.0, True
+    for a, b in zip(f16_4, int8_4):
+        sa = {r["version_key"]: r["score"] for r in a["results"]}
+        sb = {r["version_key"]: r["score"] for r in b["results"]}
+        int8_ok = int8_ok and set(sa) == set(sb) and (
+            [r["version_key"] for r in a["results"]][:2] == [r["version_key"] for r in b["results"]][:2])
+        d_int8 = max([d_int8] + [abs(sa[v] - sb[v]) for v in sa if v in sb])
+    check(self_top and pooled_top and rr_ok and launched["bpwr_redux"] > 0,
+          f"phase 17 self-retrieval exact {self_top} pooled {pooled_top}, rerank {rr_ok}, K4 "
+          f"launches {launched}")
+    check(int8_ok and d_int8 < 1.5e-2, f"phase 17 int8: top 2 / top-4 set agree {int8_ok}, max "
+          f"score difference {d_int8:.3g}")
+    say(f"[17 serving CLI] index of {out['indexed']} turbo-width versions -> ProjectionHead(512) "
+        f"{index_s:.2f} s; query of 16 versions: card {card_s:.2f} s (K4 launches "
+        f"{launched['bpwr_redux']}), "
+        f"CPU {cpu_s:.2f} s, --no-resident {host_s:.2f} s; card == CPU rankings {ok_cpu} (max "
+        f"score difference {d_cpu:.3g}), resident == host {ok_host} ({d_host:.3g}); self at rank 1 "
+        f"exact {self_top} pooled {pooled_top}; --rerank 3 {rr_ok}; int8 top 2 and top-4 set "
+        f"{int8_ok}, max score difference {d_int8:.3g}")
+    return launched
+
+
+def write_index(path: str, sets: np.ndarray, mask: np.ndarray, labels: np.ndarray,
+                emb_dim: int, chunk_size: int, overlap: float) -> None:
+    """A serving index in ``cli/serve.py``'s format, written straight from
+    (n, smax, zdim) f16 chunk sets: pooled vectors, keys, cliques, ids."""
+    from wealy_tpu_torch.cli.serve import INDEX_VERSION
+
+    w = mask[..., None].astype(np.float32)
+    vecs = (sets.astype(np.float32) * w).sum(1) / np.maximum(w.sum(1), 1e-9)
+    n = len(sets)
+    np.savez(path, version_keys=np.asarray([f"v{i}" for i in range(n)]),
+             cliques=np.asarray([f"c{c}" for c in labels]), labels=labels.astype(np.int32),
+             ids=np.arange(n, dtype=np.int64) + 10**6, vecs=vecs, sets=sets, set_mask=mask,
+             meta=np.asarray(json.dumps({
+                 "index_version": INDEX_VERSION, "model": "whisper", "zdim": int(sets.shape[-1]),
+                 "split": "test", "checkpoint_step": None, "embedding_file": "hs_last_seq.npz",
+                 "emb_dim": emb_dim, "chunk_size": chunk_size, "overlap": overlap,
+                 "has_sets": True})))
+
+
+def serving_config(root: str, kind=("last_hidden_states", "concat"), chunk_size: int = 1000,
+                   zdim: int = 512, whisper_size: str = "large-v3-turbo") -> str:
+    conf = {"path": {"lyric_covers_data": os.path.join(root, "lc"),
+                     "hidden_states": os.path.join(root, "hs"),
+                     "cache": os.path.join(root, "cache")},
+            "data": {"dataset_name": "lyric-covers", "embedding_type": kind[0],
+                     "embedding_format": kind[1], "chunk_size": chunk_size,
+                     "overlap_percentage": 0.9},
+            "model": {"name": "whisper", "zdim": zdim, "whisper_size": whisper_size}}
+    path = os.path.join(root, f"serve_{kind[0]}_{whisper_size}.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path
+
+
+def serving_scale_phase(tmp: str, dev, reset_counts, counts, smi: str, n: int = 10547,
+                        smax: int = 18, zdim: int = 512) -> dict:
+    """18. The exact-scan engine over a 10,547-version index (SHS100K-TEST's
+    size; f16 sets, smax 18, zdim 512, turbo-width 1280 queries through the
+    512-wide head), written straight in the index format: Q=1 latency over
+    40 queries, the Q=16 batched rate, ``rerank=100``, int8, K4 launches per
+    query, peak memory; and the ranks of 16 queries against the plain redux
+    on the card in the same blocks. Returns the launch counts of the Q=1
+    exact scans."""
+    from wealy_tpu_torch.cli.serve import QueryEngine
+    from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block
+    from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
+    from wealy_tpu_torch.train.config import Config
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    labels = np.repeat(np.arange(n // 2 + 1), 2)[:n]
+    g = torch.Generator(device=dev).manual_seed(18)
+    base = torch.randn(int(labels.max()) + 1, smax, zdim, device=dev, generator=g)
+    sets = base[torch.from_numpy(labels).to(dev)] + torch.randn(n, smax, zdim, device=dev,
+                                                                generator=g)
+    n_chunks = torch.from_numpy(rng.integers(1, smax + 1, n)).to(dev)
+    mask = torch.arange(smax, device=dev)[None, :] < n_chunks[:, None]
+    sets = (sets * mask[..., None]).half().cpu().numpy()
+    idx = os.path.join(tmp, "shs.npz")
+    write_index(idx, sets, mask.cpu().numpy(), labels, 1280, 1000, 0.9)
+    del sets, base
+    cpath = serving_config(tmp)
+    config = Config.from_file(cpath)
+    seqs = [(rng.normal(size=(int(T), 1280)) * 0.5).astype(np.float32)
+            for T in rng.integers(1000, 2701, 40)]
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = QueryEngine(config, idx, None, device=dev)
+    eng.search_many(seqs[:16], k=10)  # warm-up: cuBLAS/cuDNN plans, the allocator
+
+    def latencies(engine, **kw):
+        out = []
+        for seq in seqs:
+            t = time.perf_counter()
+            engine.search(seq, k=10, **kw)
+            out.append((time.perf_counter() - t) * 1e3)
+        return np.percentile(out, [50, 95])
+
+    reset_counts()
+    exact = latencies(eng)
+    launched = counts()
+    per_query = launched["bpwr_redux"] / len(seqs)
+    head_ms, score_ms = [], []
+    for seq in seqs[:10]:
+        t = time.perf_counter()
+        q, qm = eng.query_sets([seq])
+        t1 = time.perf_counter()
+        eng._score_resident(torch.from_numpy(q).to(dev), torch.from_numpy(qm).to(dev)).cpu()
+        t2 = time.perf_counter()
+        head_ms.append((t1 - t) * 1e3)
+        score_ms.append((t2 - t1) * 1e3)
+    t = time.perf_counter()
+    for _ in range(4):
+        eng.search_many(seqs[:16], k=10)
+    qps = 64 / (time.perf_counter() - t)
+    rerank = latencies(eng, rerank=100)
+
+    # the ranks of 16 queries: K4 against the plain redux, the same blocks
+    q, qm = eng.query_sets(seqs[:16])
+    q, qm = torch.from_numpy(q).to(dev), torch.from_numpy(qm).to(dev)
+    cols = []
+    with torch.no_grad():
+        for b in range(0, n, eng.block_size):
+            s, m = eng._corpus_block(slice(b, b + eng.block_size))
+            d = pairwise_distance_matrix(q.reshape(-1, zdim), s.reshape(-1, zdim), mode="cos")
+            d = d.reshape(q.shape[0], q.shape[1], s.shape[0], smax).permute(0, 2, 1, 3)
+            cols.append(_reference_bpwr_block(d, qm, m, "bpwr", 1e-7, 1e12))
+        plain = torch.cat(cols, dim=1).cpu().numpy()
+    payloads = eng.search_many(seqs[:16], k=n)
+    ranks_same = all([r["version_key"] for r in o["results"]]
+                     == [eng.keys[j] for j in np.argsort(plain[i])]
+                     for i, o in enumerate(payloads))
+    scores_same = all(np.allclose([r["score"] for r in o["results"]], -np.sort(plain[i]),
+                                  atol=1e-6) for i, o in enumerate(payloads))
+    f16_bytes = eng.resident_bytes()
+    eng.release()
+    del eng, payloads, plain, cols
+    int8 = QueryEngine(config, idx, None, device=dev, quantize="int8")
+    int8.search_many(seqs[:16], k=10)
+    int8_lat = latencies(int8)
+    int8_bytes = int8.resident_bytes()
+    scale_bytes = int8._scale_dev.numel() * 4
+    int8.release()
+    del int8
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(ranks_same and scores_same,
+          f"phase 18 ranks of 16 queries against the plain redux: order {ranks_same}, "
+          f"scores {scores_same}")
+    check(per_query > 0, f"phase 18 K4 launches per query {per_query}")
+    say(f"[18 serving at SHS scale] {n} versions, smax {smax}, zdim {zdim}, f16 resident "
+        f"{f16_bytes / 1e6:.1f} MB; exact scan Q=1 p50 {exact[0]:.2f} ms p95 {exact[1]:.2f} ms "
+        f"over {len(seqs)} queries (head {np.median(head_ms):.2f} ms, cosine+K4 scan "
+        f"{np.median(score_ms):.2f} ms, medians of 10), {per_query:.1f} K4 launches per query; "
+        f"Q=16 batched {qps:.1f} queries/s; rerank 100 p50 {rerank[0]:.2f} ms p95 "
+        f"{rerank[1]:.2f} ms; int8 p50 {int8_lat[0]:.2f} ms p95 {int8_lat[1]:.2f} ms, resident "
+        f"{int8_bytes / 1e6:.1f} MB ({scale_bytes / 1e6:.2f} MB scales); peak "
+        f"{peak:.2f} GB; 16 queries' ranks identical to the plain redux {ranks_same}, scores "
+        f"{scores_same}; set-up {setup_s:.1f} s | {smi}")
+    return launched
+
+
+def daemon_phase(tmp: str, reset_counts, counts, smi: str, clients: int = 8,
+                 rounds: int = 2) -> dict:
+    """19. ``serve`` on 127.0.0.1, port 0, over the phase-18 index: 8
+    concurrent clients, 2 queries each (T=1000 sequences as JSON), the
+    answers against ``search_many``, then one ``/reload``. Returns the
+    launch counts of the clients' burst."""
+    import threading
+    import urllib.request
+
+    from wealy_tpu_torch.cli.main import build_parser
+    from wealy_tpu_torch.cli.serve import serving
+
+    rng = np.random.default_rng(19)
+    seqs = [(rng.normal(size=(1000, 1280)) * 0.5).astype(np.float32)
+            for _ in range(clients * rounds)]
+    bodies = [json.dumps({"embeddings": s.tolist(), "k": 10}).encode() for s in seqs]
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+        return json.loads(urllib.request.urlopen(req, timeout=300).read())
+
+    args = build_parser().parse_args(["serve", "--config", serving_config(tmp), "--index",
+                                      os.path.join(tmp, "shs.npz"), "--port", "0"])
+    answers = [None] * len(seqs)
+    with serving(args) as daemon:
+        post(f"{daemon.url}/query", bodies[0])  # warm-up
+
+        def client(c):
+            for r in range(rounds):
+                i = c * rounds + r
+                answers[i] = post(f"{daemon.url}/query", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launched = counts()
+        stats = json.loads(urllib.request.urlopen(f"{daemon.url}/healthz", timeout=60).read())
+        want = daemon.engine.search_many(seqs, k=10)
+        same, diff = same_rankings([a or {"results": []} for a in answers], want, 1e-4)
+        reload = post(f"{daemon.url}/reload", b"")
+        again = post(f"{daemon.url}/query", bodies[0])
+        after, _ = same_rankings([again], want[:1], 1e-4)
+    stats = stats["batch_stats"]
+    batch = (stats["queries"] - 1) / max(stats["dispatches"] - 1, 1)  # the burst's, not the warm-up's
+    check(same and after and reload.get("indexed") == reload.get("was")
+          and launched["bpwr_redux"] > 0,
+          f"phase 19 daemon answers equal search_many {same} ({diff:.3g}), after /reload {after}, "
+          f"reload {reload}, K4 launches {launched['bpwr_redux']}")
+    say(f"[19 serve daemon] {clients} concurrent clients x {rounds} queries (T=1000, 1280-dim "
+        f"JSON) over {stats['queries'] - 1} queries: {(stats['queries'] - 1) / wall:.2f} "
+        f"queries/s, mean batch {batch:.2f} ({stats['dispatches'] - 1} dispatches); answers == "
+        f"search_many {same} (max score difference {diff:.3g}); /reload {reload}; K4 launches "
+        f"{launched['bpwr_redux']} | {smi}")
+    return launched
+
+
+def write_wav(path: str, seconds: float, sr: int = 44100, seed: int = 0) -> None:
+    """16-bit mono: two tones and noise from a seed."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.3 * np.sin(2 * np.pi * (220 + 40 * seed) * t) + 0.2 * np.sin(2 * np.pi * 660 * t)
+    x = x + 0.05 * rng.normal(size=t.shape)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def audio_query_phase(tmp: str, dev, reset_counts, counts, smi: str,
+                      whisper_size: str = "large-v3-turbo") -> dict:
+    """20. ``query --audio`` with a 30 s and a 180 s WAV (16-bit, 44.1 kHz,
+    so the resampler runs) at large-v3-turbo, ``x_concat`` kind, against a
+    256-version index of random turbo-width sets, and the latency of each
+    after a warm-up; then a whisper-tiny ``hs_last_seq`` audio query on the
+    card against the CPU, against an index of its own noisy copies. Returns
+    the K1-K3 launches of the turbo ``query`` run."""
+    from wealy_tpu_torch.cli.serve import QueryEngine, make_query_embed_fn
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wealy_tpu_torch.train.config import Config
+
+    width = WHISPER_CONFIGS[whisper_size].n_audio_state
+    wavs = [os.path.join(tmp, f"q{s}.wav") for s in (30, 180)]
+    for seed, (path, seconds) in enumerate(zip(wavs, (30, 180))):
+        write_wav(path, seconds, seed=seed)
+    rng = np.random.default_rng(20)
+    n, smax = 256, 6
+    mask = np.arange(smax)[None, :] < rng.integers(1, smax + 1, n)[:, None]
+    sets = (rng.normal(size=(n, smax, 512)) * mask[..., None]).astype(np.float16)
+    idx = os.path.join(tmp, "turbo_x_concat.npz")
+    write_index(idx, sets, mask, np.arange(n) // 2, width, 2, 0.9)
+    cpath = serving_config(tmp, kind=("encoder", "concat"), chunk_size=2,
+                           whisper_size=whisper_size)
+    # one call per file: a 30 s clip is one x_concat row, which the
+    # overlapping collate (in both packages) cannot batch with longer songs
+    reset_counts()
+    outs, cli_s = [], 0.0
+    for path in wavs:
+        lines, wall = run_cli_lines(["query", "--config", cpath, "--index", idx, "--k", "5",
+                                     "--audio", path])
+        outs += lines
+        cli_s += wall
+    launched = counts()
+    check(len(outs) == 2 and all(len(o["results"]) == 5 and o["query"] == w
+                                 for o, w in zip(outs, wavs)), f"phase 20 query --audio {outs}")
+    eng = QueryEngine(Config.from_file(cpath), idx, None, device=dev)
+    lat = {}
+    for path in wavs:
+        eng.search(eng.embed_audio(path), k=5)  # warm-up at this length
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            eng.search(eng.embed_audio(path), k=5)
+            runs.append(time.perf_counter() - t)
+        lat[path] = np.median(runs) * 1e3
+    seq180 = eng.embed_audio(wavs[1])
+    finite = bool(np.isfinite(seq180).all()) and seq180.shape == (6, width)
+    del eng
+    torch.cuda.empty_cache()
+
+    # whisper-tiny hs_last_seq: card against CPU, the same seeded weights
+    tiny = Config.from_file(serving_config(tmp, chunk_size=64, zdim=64, whisper_size="tiny"))
+    t = time.perf_counter()
+    q_cpu = make_query_embed_fn(tiny, device="cpu")(wavs[0])
+    cpu_s = time.perf_counter() - t
+    # the index: the CPU query's own sequence under growing noise, so its
+    # true order is known (windows of 64 decoder positions)
+    ladder = [q_cpu + s * rng.normal(size=q_cpu.shape).astype(np.float32)
+              for s in (0.0, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2)]
+    tiny_idx = os.path.join(tmp, "tiny.npz")
+    write_index(tiny_idx, np.zeros((1, 1, 64), np.float16), np.ones((1, 1), bool),
+                np.zeros(1, int), 384, 64, 0.9)
+    probe = QueryEngine(tiny, tiny_idx, None, device=dev)
+    qs, qm = probe.query_sets(ladder)
+    write_index(tiny_idx, qs.astype(np.float16), qm, np.arange(len(ladder)) // 2, 384, 64, 0.9)
+    del probe
+    results = {}
+    for where in ("cuda", "cpu"):
+        engine = QueryEngine(tiny, tiny_idx, None, device=where)
+        t = time.perf_counter()
+        results[where] = engine.search(engine.embed_audio(wavs[0]), k=5)
+        results[where + "_s"] = time.perf_counter() - t
+    keys = {w: [r["version_key"] for r in results[w]["results"]] for w in ("cuda", "cpu")}
+    check(keys["cuda"] == keys["cpu"], f"phase 20 tiny hs_last_seq top-5 card {keys['cuda']} "
+          f"vs CPU {keys['cpu']}")
+    check(finite and all(launched[k] > 0 for k in EXTRACT_KERNELS),
+          f"phase 20 turbo embedding finite {finite}, launches {launched}")
+    say(f"[20 audio queries] large-v3-turbo x_concat: query --audio 30 s + 180 s WAVs (44.1 kHz "
+        f"16-bit) {cli_s:.2f} s in two cold calls (model builds included); after warm-up 30 s "
+        f"{lat[wavs[0]]:.1f} ms, 180 s {lat[wavs[1]]:.1f} ms (decode, resample, mel, encoder, "
+        f"head, scan of {n} versions); launches {launched}; whisper-tiny hs_last_seq card "
+        f"top-5 {keys['cuda']} == CPU {keys['cpu']} {keys['cuda'] == keys['cpu']} (card "
+        f"{results['cuda_s']:.2f} s, CPU {results['cpu_s']:.2f} s, CPU embed first {cpu_s:.2f} "
+        f"s) | {smi}")
+    return launched
 
 
 if __name__ == "__main__":

@@ -5,9 +5,12 @@ query or key and unequal query and key lengths (K2, and the backward
 K5a/K5b with repeat calls bit-equal), one row and rows that fill no tile
 (K3), tiles of one row or the widest side and bpwr-n rounds (K4, bit-equal
 to its plain version), the launch counters, the shapes the kernels refuse,
-the encoder's routing through K2 and K3, and the gradient of a two-block
-bf16 encoder through K2/K5a/K5b/K3 against its plain path. All use the
-tolerances defined beside the kernels. Marked ``cuda``; each skips without
+the encoder's routing through K2 and K3, the gradient of a two-block
+bf16 encoder through K2/K5a/K5b/K3 against its plain path, K6 at the
+shapes chip_smoke.py holds it at plus a width off the 16-byte access and a
+misaligned row, and the serving engine's resident corpus (f16 and int8)
+against its host path on the card. All use the tolerances defined beside
+the kernels. Marked ``cuda``; each skips without
 a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -39,6 +42,7 @@ from wealy_tpu_torch.ops.flash_attention import (
     flash_mha_fwd,
 )
 from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
+from wealy_tpu_torch.ops import layer_norm as tln
 
 from _torch_parity import cuda_device, min_row_cosine, to_numpy
 
@@ -274,3 +278,102 @@ def test_resident_and_streamed_ranks_bit_equal_on_card(dev):
     assert bpwr_block_redux.launches > before
     np.testing.assert_array_equal(resident, streamed)
     np.testing.assert_array_equal(n1, n2)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((64, 1500, 384), torch.bfloat16), ((8, 1500, 1280), torch.bfloat16),
+    ((4507, 1280), torch.bfloat16), ((3, 70, 384), torch.float32),
+    ((5, 100), torch.bfloat16), ((7, 2048), torch.float32), ((9, 1), torch.float32),
+])
+def test_layer_norm_kernel_against_plain(dev, shape, dtype):
+    """K6 against _reference_ln on the same input (f32: rtol/atol 1e-5;
+    bf16: 2e-2): the phase-16 shapes, a width off the 16-byte access (one
+    element per access), the widest row and a one-wide row."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    scale = torch.randn(shape[-1], device=dev, generator=g) + 1
+    bias = torch.randn(shape[-1], device=dev, generator=g)
+    before = tln.fused_layer_norm.launches
+    got = tln.fused_layer_norm(x, scale, bias)
+    assert tln.fused_layer_norm.launches == before + 1 and got.dtype == dtype
+    tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
+    torch.testing.assert_close(got.float(), tln._reference_ln(x, scale, bias, 1e-5).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_layer_norm_kernel_misaligned_view_and_module_grads(dev):
+    """A row view that starts off a 16-byte boundary, and LayerNormFused's
+    gradients on the card against autograd of the plain version."""
+    from wealy_tpu_torch.models.layers import LayerNormFused
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    flat = torch.randn(6 * 384 + 1, device=dev, generator=g).bfloat16()
+    x = flat[1:].view(6, 384)  # 2 bytes past the allocation's start
+    scale, bias = torch.ones(384, device=dev), torch.zeros(384, device=dev)
+    torch.testing.assert_close(tln.fused_layer_norm(x, scale, bias).float(),
+                               tln._reference_ln(x, scale, bias, 1e-5).float(),
+                               rtol=tln.BF16_TOL, atol=tln.BF16_TOL)
+    mod = LayerNormFused(512).to(dev)
+    with torch.no_grad():
+        mod.scale.mul_(1.5)
+        mod.bias.add_(0.25)
+    x = torch.randn(4, 33, 512, device=dev, generator=g).requires_grad_()
+    r = torch.randn(4, 33, 512, device=dev, generator=g)
+    (mod(x) * r).sum().backward()
+    leaves = [t.detach().requires_grad_() for t in (x, mod.scale, mod.bias)]
+    (tln._reference_ln(*leaves, 1e-5) * r).sum().backward()
+    for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves):
+        torch.testing.assert_close(got, want.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_resident_serving_matches_host_on_card(dev, tmp_path):
+    """QueryEngine on the card: the resident corpus (f16 and int8, several
+    blocks, s1 > s2 queries) gives the host path's rankings and scores, and
+    the CPU engine's, through K4."""
+    import json
+
+    from wealy_tpu_torch.cli.serve import INDEX_VERSION, QueryEngine
+    from wealy_tpu_torch.train.config import Config
+
+    rng = np.random.default_rng(18)
+    n, smax, zdim = 37, 5, 16
+    sets = rng.normal(size=(n, smax, zdim)).astype(np.float16)
+    mask = np.arange(smax)[None, :] < rng.integers(1, smax + 1, n)[:, None]
+    sets[~mask] = 0
+    vecs = (sets.astype(np.float32) * mask[..., None]).sum(1) / mask.sum(1, keepdims=True)
+    idx = tmp_path / "idx.npz"
+    np.savez(idx, version_keys=np.asarray([str(i) for i in range(n)]),
+             cliques=np.asarray([f"c{i // 2}" for i in range(n)]),
+             labels=(np.arange(n) // 2).astype(np.int32), ids=np.arange(n, dtype=np.int64),
+             vecs=vecs.astype(np.float32), sets=sets, set_mask=mask,
+             meta=np.asarray(json.dumps({
+                 "index_version": INDEX_VERSION, "model": "whisper", "zdim": zdim,
+                 "split": "test", "checkpoint_step": None, "embedding_file": "hs_last_seq.npz",
+                 "emb_dim": 24, "chunk_size": 4, "overlap": 0.5, "has_sets": True})))
+    config = Config.from_dict({"path": {"lyric_covers_data": "/n", "hidden_states": "/n",
+                                        "cache": "/n"},
+                               "data": {"dataset_name": "lyric-covers", "chunk_size": 4},
+                               "model": {"name": "whisper", "zdim": zdim}})
+    seqs = [rng.normal(size=(T, 24)).astype(np.float32) for T in (5, 30, 9)]  # s1 1-14
+
+    def payloads(**kw):
+        eng = QueryEngine(config, str(idx), None, block_size=8, **kw)
+        return [eng.search_many(seqs, k=6, rerank=r) for r in (0, 10)]
+
+    before = bpwr_block_redux.launches
+    resident = payloads(device=dev)
+    assert bpwr_block_redux.launches > before
+    for other in (payloads(device=dev, resident=False), payloads(device="cpu"),
+                  payloads(device=dev, quantize="int8")):
+        for got, want in zip(other, resident):
+            for g_, w in zip(got, want):
+                assert [r["version_key"] for r in g_["results"]][:1] == \
+                    [r["version_key"] for r in w["results"]][:1]
+                np.testing.assert_allclose([r["score"] for r in g_["results"]],
+                                           [r["score"] for r in w["results"]], atol=1.5e-2)
+    for got, want in zip(payloads(device=dev, resident=False), resident):
+        for g_, w in zip(got, want):
+            assert [r["version_key"] for r in g_["results"]] == \
+                [r["version_key"] for r in w["results"]]
+            np.testing.assert_allclose([r["score"] for r in g_["results"]],
+                                       [r["score"] for r in w["results"]], atol=1e-4)

@@ -150,7 +150,7 @@ def test_evaluate_cli_matches_jax(project, capsys, flags):  # noqa: F811
     base = ["evaluate", "--config", str(cpath), "--split", "test"]
     assert jax_main(base + ["--checkpoint", orbax_dir] + flags) == 0
     want = _last_json(capsys)
-    assert tcli.main(base + ["--checkpoint", torch_file] + flags) == 0
+    assert tcli.main(base + ["--checkpoint", torch_file, "--device", "cpu"] + flags) == 0
     got = _last_json(capsys)
     assert got["n_queries"] == want["n_queries"] == 4
     for k in ("MAP", "MR1", "P@10"):
@@ -169,14 +169,14 @@ def test_evaluate_cli_avg_pooling_and_paths_agree(project, capsys, tmp_path):  #
     base = ["evaluate", "--config", str(avg), "--split", "test", "--redux", "smean"]
     assert jax_main(base + ["--checkpoint", orbax_dir]) == 0
     want = _last_json(capsys)
-    assert tcli.main(base + ["--checkpoint", torch_file]) == 0
+    assert tcli.main(base + ["--checkpoint", torch_file, "--device", "cpu"]) == 0
     got = _last_json(capsys)
     for k in ("MAP", "MR1", "P@10"):
         assert abs(got[k] - want[k]) <= 1e-6
     runs = []
     for flags in ([], ["--streaming", "--chunk-sets"]):
         assert tcli.main(["evaluate", "--config", str(cpath), "--song-group", "3",
-                          "--encode-slab", "5"] + flags) == 0
+                          "--encode-slab", "5", "--device", "cpu"] + flags) == 0
         runs.append(_last_json(capsys))
     assert runs[0] == runs[1]
 
@@ -192,13 +192,13 @@ def test_validate_data_cli_matches_jax(project, capsys):  # noqa: F811
 def test_evaluate_cli_refuses_what_is_not_ported(project, tmp_path):  # noqa: F811
     _, cpath, _ = project
     with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["evaluate", "--config", str(cpath), "--test-mode"])
+        tcli.main(["evaluate", "--config", str(cpath), "--test-mode", "--device", "cpu"])
     conf = json.loads(cpath.read_text())
     conf["model"]["name"] = "wealy-clews"
     other = tmp_path / "clews.json"
     other.write_text(json.dumps(conf))
     with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["evaluate", "--config", str(other)])
+        tcli.main(["evaluate", "--config", str(other), "--device", "cpu"])
 
 
 def test_auto_streaming_threshold():

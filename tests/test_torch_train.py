@@ -560,7 +560,7 @@ def test_train_cli_then_evaluate_reads_its_head(project, capsys):  # noqa: F811
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
         [sys.executable, "-m", "wealy_tpu_torch.cli.main", "train", "--config", str(cpath),
-         "--max-steps", "4"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+         "--max-steps", "4", "--device", "cpu"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["final_step"] == 4 and np.isfinite(out["final_loss"])
@@ -569,13 +569,15 @@ def test_train_cli_then_evaluate_reads_its_head(project, capsys):  # noqa: F811
     metrics = []
     for ck in (str(ckdir), str(ckdir / "ckpt_4.pt")):
         assert tcli.main(["evaluate", "--config", str(cpath), "--split", "test",
-                          "--checkpoint", ck]) == 0
+                          "--checkpoint", ck, "--device", "cpu"]) == 0
         metrics.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
     assert metrics[0] == metrics[1] and metrics[0]["n_queries"] == 4
-    seeded = tcli.main(["evaluate", "--config", str(cpath), "--split", "test"])
+    seeded = tcli.main(["evaluate", "--config", str(cpath), "--split", "test", "--device",
+                        "cpu"])
     assert seeded == 0
     capsys.readouterr()
-    assert tcli.main(["train", "--config", str(cpath), "--max-steps", "6"]) == 0
+    assert tcli.main(["train", "--config", str(cpath), "--max-steps", "6", "--device",
+                      "cpu"]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["final_step"] == 6
 
 
@@ -587,4 +589,4 @@ def test_train_cli_fusion_models_wait_for_their_slice(project, name):  # noqa: F
     p = tmp / f"{name}.json"
     p.write_text(json.dumps(conf))
     with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["train", "--config", str(p)])
+        tcli.main(["train", "--config", str(p), "--device", "cpu"])

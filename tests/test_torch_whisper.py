@@ -235,9 +235,9 @@ def test_hf_names_map_to_openai():
 
 
 def test_load_whisper_model_seeded():
-    a, cfg = load_whisper_model("dev", seed=5)
-    b, _ = load_whisper_model("dev", seed=5)
-    c, _ = load_whisper_model("dev", seed=6)
+    a, cfg = load_whisper_model("dev", seed=5, device="cpu")
+    b, _ = load_whisper_model("dev", seed=5, device="cpu")
+    c, _ = load_whisper_model("dev", seed=6, device="cpu")
     key = "encoder.blocks.0.attn.query.weight"
     assert cfg == WHISPER_CONFIGS["dev"]
     assert torch.equal(a.state_dict()[key], b.state_dict()[key])

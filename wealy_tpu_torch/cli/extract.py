@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS, WhisperConfig
 from wealy_tpu_torch.models.whisper.convert import load_openai_state_dict
 from wealy_tpu_torch.models.whisper.model import Whisper
@@ -17,17 +18,19 @@ def load_whisper_model(
     size: str = "tiny",
     checkpoint: Optional[str] = None,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     dtype=torch.bfloat16,
 ) -> tuple[Whisper, WhisperConfig]:
-    """Build the extraction Whisper on ``device``: weights from an
-    openai-whisper or HF checkpoint when given, otherwise a seeded random
-    init drawn on ``device`` (no weights are downloaded)."""
+    """Build the extraction Whisper on ``device`` (the card unless the
+    caller asks for the CPU): weights from an openai-whisper or HF
+    checkpoint when given, otherwise a seeded random init drawn on the CPU,
+    so that the card and the CPU get the same weights (no weights are
+    downloaded)."""
     cfg = WHISPER_CONFIGS[size]
-    device = torch.device(device)
+    device = resolve_device(device)
     model = Whisper(cfg, dtype=dtype, device=device)
     if checkpoint:
         model.load_state_dict(load_openai_state_dict(checkpoint))
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+        model.init_weights(torch.Generator().manual_seed(seed))
     return model.eval(), cfg

@@ -1,12 +1,18 @@
-"""Command-line entry of the port: ``validate-data``, ``train`` and ``evaluate``.
+"""Command-line entry of the port: ``validate-data``, ``train``,
+``evaluate``, and the serving commands ``index``, ``query`` and ``serve``.
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
     python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
         [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint PATH]
+    python -m wealy_tpu_torch.cli.main index --config conf.json --split test --out idx.npz
+    python -m wealy_tpu_torch.cli.main query --config conf.json --index idx.npz \\
+        (--audio A.wav ... | --query-embeddings Q.npz ...) [--rerank R] [--quantize int8]
+    python -m wealy_tpu_torch.cli.main serve --config conf.json --index idx.npz [--port P]
 
 The counterpart of ``wealy_tpu.cli.main`` for these commands, with the JAX
-parser's flags. Both run on the card when there is one, else on the CPU.
+parser's flags plus ``--device {cuda,cpu}`` (default ``cuda``: without a
+card the command exits with an error unless ``--device cpu`` is given).
 ``train`` trains the ``whisper`` head on stored embeddings with the
 configured loss (clews, ntxent, triplet), AdamW, ``train.grad_accum``, the
 val-split MAP hook every ``train.eval_every`` steps and ``torch.save``
@@ -16,8 +22,9 @@ one JSON line. ``evaluate --checkpoint`` takes a head state-dict file, a
 the JAX package's orbax directories need JAX to read. Without one the head
 is initialised from ``torch.Generator`` seed 0
 (``models/heads.py::seeded_init_``), which is not the JAX package's init.
-Fusion models and ``--test-mode`` come with the CLEWS/fusion slice;
-``--profile`` with ``utils/profiling.py``.
+The serving commands live in :mod:`wealy_tpu_torch.cli.serve`. Fusion
+models and ``--test-mode`` come with the CLEWS/fusion slice; ``--profile``
+with ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -27,11 +34,12 @@ import json
 import math
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from wealy_tpu_torch import default_device
+from wealy_tpu_torch import resolve_device
 
 AUTO_STREAM_THRESHOLD = 2000
 
@@ -95,27 +103,49 @@ def cmd_validate_data(args) -> int:
     return 0 if all(r["ok"] for r in reports.values()) else 1
 
 
-def load_head(config, in_features: int, checkpoint=None, device=None):
-    """The evaluate head for ``config.model``: weights from ``checkpoint``
-    (a head state-dict file, a ``train`` payload file, or a checkpoint
-    directory whose newest payload is read) or seeded, in eval mode on
-    ``device``."""
-    from wealy_tpu_torch.models.heads import seeded_init_
-    from wealy_tpu_torch.models.registry import build_model
+def read_head_checkpoint(checkpoint) -> tuple[dict, Optional[int]]:
+    """(state dict, training step) of a head checkpoint: a state-dict file
+    (step None), a ``train`` payload file, or a checkpoint directory whose
+    newest payload is read."""
     from wealy_tpu_torch.train.checkpoint import CheckpointManager
 
+    if Path(checkpoint).is_dir():
+        sd = CheckpointManager(checkpoint).restore()
+    else:
+        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    if "params" in sd and "opt_state" in sd:  # a train payload
+        return sd["params"], int(sd["step"])
+    return sd, None
+
+
+def serving_checkpoint(checkpoint, config) -> Optional[str]:
+    """The head checkpoint of the serving commands: ``checkpoint``, else
+    ``path.checkpoints`` when that directory holds a payload, else None (the
+    seeded head), as the JAX package's ``_load_head_params``."""
+    from wealy_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = checkpoint or config.path.checkpoints
+    if ckpt and Path(ckpt).is_dir() and CheckpointManager(ckpt).latest_step() is None:
+        return None
+    return ckpt or None
+
+
+def load_head(config, in_features: int, checkpoint=None, device=None):
+    """The evaluate head for ``config.model`` in eval mode on ``device``,
+    and its training step: weights from ``checkpoint``
+    (:func:`read_head_checkpoint`) or seeded (step None)."""
+    from wealy_tpu_torch.models.heads import seeded_init_
+    from wealy_tpu_torch.models.registry import build_model
+
+    device = resolve_device(device)
     model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=in_features)
+    step = None
     if checkpoint:
-        if Path(checkpoint).is_dir():
-            sd = CheckpointManager(checkpoint).restore()
-        else:
-            sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        if "params" in sd and "opt_state" in sd:  # a train payload
-            sd = sd["params"]
+        sd, step = read_head_checkpoint(checkpoint)
         model.load_state_dict(sd)
     else:
         seeded_init_(model, seed=0)
-    return model.to(device if device is not None else default_device()).eval()
+    return model.to(device).eval(), step
 
 
 def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 256,
@@ -177,7 +207,7 @@ def make_val_eval_fn(config, model, val_ds, val_group: int = 256, device=None):
 
     v_versions = list(val_ds.sampler.versions)
     val_group = max(1, min(val_group, len(v_versions)))
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
 
     def eval_fn(state):
         zs, lbls, vids = [], [], []
@@ -220,9 +250,9 @@ def cmd_train(args) -> int:
     from wealy_tpu_torch.train.state import create_train_state, make_optimizer
     from wealy_tpu_torch.train.step import make_train_step
 
+    device = resolve_device(args.device)
     config = _load_config(args.config)
     check_model_name(config.model.name)
-    device = default_device()
     torch.autograd.set_detect_anomaly(bool(config.train.debug_nans))
     loss_fn = get_loss(config.train.loss, **(config.train.loss_params or {}))
     ds = EmbeddingDataset(config, "train", seed=config.train.seed)
@@ -276,7 +306,7 @@ def cmd_train(args) -> int:
     return 0
 
 
-def evaluate(args, device=None) -> dict:
+def evaluate(args) -> dict:
     """The ``evaluate`` command's metrics (MAP, MR1, P@10, n_queries)."""
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.eval.retrieval import evaluate_retrieval
@@ -287,13 +317,13 @@ def evaluate(args, device=None) -> dict:
             "--test-mode embeds the chunks of fusion models; it comes with the CLEWS/fusion "
             "slice of the port"
         )
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(args.device)
     config = _load_config(args.config)
     ds = EmbeddingDataset(config, args.split, seed=0)
     versions = list(ds.sampler.versions)
     _auto_streaming(args, len(versions), exact_chunk_sets=True)
     emb_dim = ds.load_embedding(versions[0]).shape[-1]
-    model = load_head(config, emb_dim, args.checkpoint, device)
+    model, _ = load_head(config, emb_dim, args.checkpoint, device)
     pooled = args.streaming and not args.chunk_sets
     all_sets, all_masks, labels, ids = embed_split(
         config, ds, model, song_group=args.song_group, encode_slab=args.encode_slab,
@@ -328,6 +358,12 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def _add_device(parser) -> None:
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where to run (default: the card; without one the command "
+                        "fails unless --device cpu is given)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="wealy_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -343,6 +379,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--max-steps", type=int, default=None)
     tr.add_argument("--fresh", action="store_true",
                     help="ignore existing checkpoints in path.checkpoints")
+    _add_device(tr)
     tr.set_defaults(fn=cmd_train)
 
     ev = sub.add_parser("evaluate", help="MAP/MR1 retrieval evaluation")
@@ -370,12 +407,95 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --streaming: exact chunk-set --redux ranking streamed in blocks instead "
         "of chunk-pooled song vectors",
     )
+    _add_device(ev)
     ev.set_defaults(fn=cmd_evaluate)
+    _add_serving_parsers(sub)
     return p
+
+
+def _add_serving_parsers(sub) -> None:
+    """``index``, ``query`` and ``serve`` with the JAX parser's flags."""
+    from wealy_tpu_torch.cli.serve import cmd_index, cmd_query, cmd_serve
+
+    ix = sub.add_parser("index", help="embed a split into a serving index (.npz)")
+    ix.add_argument("--config", required=True)
+    ix.add_argument("--split", default="test")
+    ix.add_argument("--out", required=True)
+    ix.add_argument("--checkpoint", default=None,
+                    help="head state-dict file, train payload, or checkpoint directory "
+                    "(default: path.checkpoints, else seeded init)")
+    ix.add_argument("--no-sets", action="store_true",
+                    help="pooled song vectors only (smaller index; query falls back to "
+                    "cosine ranking instead of exact chunk-set redux scoring)")
+    ix.add_argument("--song-group", type=int, default=64)
+    ix.add_argument("--encode-slab", type=int, default=256)
+    ix.add_argument("--update", action="store_true",
+                    help="incremental rebuild: carry forward already-indexed versions, embed "
+                    "only new ones, drop versions no longer in the split (refused if the "
+                    "checkpoint/model/schema changed)")
+    _add_device(ix)
+    ix.set_defaults(fn=cmd_index)
+
+    def engine_flags(parser) -> None:
+        parser.add_argument("--config", required=True)
+        parser.add_argument("--index", required=True)
+        parser.add_argument("--checkpoint", default=None)
+        parser.add_argument("--k", type=int, default=10)
+        parser.add_argument("--pooled", action="store_true",
+                            help="pooled-cosine scoring even when the index carries chunk sets")
+        parser.add_argument("--redux", default="bpwr")
+        parser.add_argument("--block-size", type=int, default=512,
+                            help="corpus songs scored per redux block (bounds the transient "
+                            "(Q, block, s1, s2) tensor)")
+        parser.add_argument("--rerank", type=int, default=0,
+                            help="two-stage retrieval: pooled-cosine shortlist of this many "
+                            "songs, exact chunk-set redux only on the shortlist (0 = exact "
+                            "scan of the whole corpus)")
+        parser.add_argument("--no-resident", action="store_true",
+                            help="keep the corpus chunk sets in host memory and upload per "
+                            "block per query instead of the device-resident corpus")
+        parser.add_argument("--shard", action="store_true",
+                            help="shard the resident corpus over the local cards (one card "
+                            "only in this port)")
+        parser.add_argument("--wealy-head-checkpoint", default=None,
+                            help="fusion (wealy-clews) indexes only: not in this port")
+        parser.add_argument("--quantize", choices=["int8"], default=None,
+                            help="int8 resident corpus (per-chunk absmax scales, dequantized "
+                            "per block): half the device bytes")
+        _add_device(parser)
+
+    q = sub.add_parser("query", help="top-k cover-song search against an index")
+    engine_flags(q)
+    q.add_argument("--audio", nargs="*", default=None,
+                   help="audio files to embed and search (WAV; other formats through ffmpeg)")
+    q.add_argument("--query-embeddings", nargs="*", default=None,
+                   help="precomputed (T, C) .npz sequences")
+    q.set_defaults(fn=cmd_query)
+
+    sv = sub.add_parser("serve", help="persistent local search daemon (JSON over HTTP)")
+    engine_flags(sv)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=0,
+                    help="0 picks an ephemeral port (printed on startup)")
+    sv.add_argument("--warmup", action="store_true",
+                    help="run the audio-query path once on a synthetic clip before "
+                    "accepting requests")
+    sv.add_argument("--batch-window-ms", type=float, default=10.0,
+                    help="micro-batching window: queries arriving within it share one "
+                    "search_many call (0 = immediate dispatch)")
+    sv.add_argument("--max-batch", type=int, default=32,
+                    help="cap on queries per micro-batched dispatch")
+    sv.set_defaults(fn=cmd_serve)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.fn in (cmd_evaluate, cmd_train):
+        # the host-streaming commands churn multi-MB transients per song
+        # group; glibc's dynamic mmap threshold turns that into heap growth
+        from wealy_tpu_torch.utils.hostmem import pin_malloc_thresholds
+
+        pin_malloc_thresholds()
     return args.fn(args)
 
 

@@ -9,7 +9,10 @@
 // 2 x 400 x 201 FMAs for the DFT and 201 x n_mels for the mel projection,
 // about 0.5 GFMA per 30 s clip, all in f32 (the golden tolerance rtol 1e-4 /
 // atol 1e-5 rules out TF32 tensor cores). The waveform is read once (1.9 MB
-// per clip) and the output written once.
+// per clip) and the output written once. The function itself needs far
+// less: on an FFT route with the filterbank's nonzeros only, about 10k
+// flops a frame, so its floor is the bytes (about 7 us at B=8, 80 mels:
+// chip_smoke.py's log_mel_bound). The dense DFT is this design's cost.
 //
 // Design: the TPU kernel keeps the cos/sin bases (2 x 400 x 201 f32 =
 // 643 KB) resident in VMEM; they do not fit in the 227 KB of shared memory,

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from wealy_tpu_torch import default_device
+from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
 from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
 from wealy_tpu_torch.ops.redux import distance_tensor_redux
@@ -76,7 +76,7 @@ def slabbed_apply(apply_fn, *arrays: np.ndarray, slab_size: int = 256,
     """``apply_fn(*slabs) -> z_slab`` over flat batches sharing a leading
     dim, in fixed-size slabs (the last one zero-padded) on ``device``, so
     that host and device memory hold one slab's activations at a time."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     n = arrays[0].shape[0]
     slab_size = min(slab_size, max(n, 1))
     outs = []
@@ -153,7 +153,7 @@ def song_distance_matrix(
     """(Q, s1, C) x (N, s2, C) chunk sets -> (Q, N) song distances: one
     chunk-pair distance product, then the redux under the mask of invalid
     (padding) chunks, on ``device`` (default: the card when there is one)."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), device=device)

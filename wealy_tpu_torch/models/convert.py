@@ -7,6 +7,10 @@ returns the state dict of the port's module of the same structure:
 - Conv kernel (k, C_in, C_out) -> Conv1d weight (C_out, C_in, k)
 - Dense kernel (in, out) -> Linear weight (out, in)
 - LayerNorm scale / bias -> weight / bias; Dense bias -> bias
+
+:func:`layer_norm_state_dict_from_jax_params` carries a flax
+``LayerNormFused`` (``{"scale", "bias"}``) into the port's
+``LayerNormFused``, whose parameters keep the flax names.
 """
 
 from __future__ import annotations
@@ -46,3 +50,11 @@ def head_state_dict_from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+def layer_norm_state_dict_from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``LayerNormFused`` params -> the port's ``LayerNormFused`` state
+    dict (the same names, f32 tensors)."""
+    if set(params) != {"scale", "bias"}:
+        raise ValueError(f"LayerNormFused params are scale and bias; got {sorted(params)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in ("scale", "bias")}

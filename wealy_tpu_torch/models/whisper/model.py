@@ -314,10 +314,11 @@ class Whisper(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Whisper":
-        """Seeded random init on the parameters' device (``generator`` lives
-        there too): Dense/conv weights N(0, 1/fan_in), biases 0, LayerNorm
-        1/0, token embedding N(0, 0.02), decoder positions N(0, 0.01), the
-        encoder position table the exact sinusoids."""
+        """Seeded random init: Dense/conv weights N(0, 1/fan_in), biases 0,
+        LayerNorm 1/0, token embedding N(0, 0.02), decoder positions N(0,
+        0.01), the encoder position table the exact sinusoids. The numbers
+        are drawn on ``generator``'s device and copied to the parameters', so
+        a CPU generator gives every device the same weights."""
         ln_weights = {
             id(m.weight) for m in self.modules() if isinstance(m, nn.LayerNorm)
         }
@@ -336,7 +337,7 @@ class Whisper(nn.Module):
                 else:
                     std = (p[0].numel()) ** -0.5  # fan_in of (out, in[, k])
                 noise = torch.randn(
-                    p.shape, generator=generator, device=p.device, dtype=torch.float32
+                    p.shape, generator=generator, device=generator.device, dtype=torch.float32
                 )
                 p.copy_(noise * std)
         return self

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from wealy_tpu_torch import default_device
+from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.eval.retrieval import song_distance_matrix_torch
 from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
 
@@ -122,7 +122,7 @@ def streaming_relevant_ranks(
     Returns (ranks (Q, R) int32, 0 = empty slot, n_rel (Q,)) for
     :func:`map_from_ranks`.
     """
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     corpus = np.asarray(corpus)
     queries = np.asarray(queries)
     sets = queries.ndim == 3
