@@ -30,7 +30,17 @@ Five pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
 For each trace it prints the host wall of the traced region, the device busy
 time (the union of the intervals of kernels, copies and sets), the idle
 share, and the kernels by device time. The profiler's own tables go to
-``--out``. Refuses to run without CUDA.
+``--out``.
+
+    python3 chip_profile.py --attention-backward [--package-root DIR]
+
+times the attention backward (K5a + K5b) against SDPA's backward (dq, dk and
+dv together) in turns (chip_smoke.py's ``turns_ms``: SDPA, K5a, K5b, K5a,
+K5b, SDPA, five times over, medians) at (4, 1500, 6, 64) and (8, 1500, 20,
+64), with ``wealy_tpu_torch`` imported from DIR (default: this checkout), so
+that two checkouts can be compared within one call on one card by their
+ratio to the library call. It prints one JSON line. Refuses to run without
+CUDA.
 """
 
 from __future__ import annotations
@@ -85,11 +95,17 @@ def report(label: str, prof, wall_ms: float, out: Path, top: int = 14) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="profile_out", help="directory for the tables")
+    ap.add_argument("--attention-backward", action="store_true",
+                    help="time K5a + K5b against SDPA's backward in turns, and nothing else")
+    ap.add_argument("--package-root", default=None,
+                    help="checkout whose wealy_tpu_torch --attention-backward times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.attention_backward:
+        return time_attention_backward(args.package_root)
     from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
     from wealy_tpu_torch.cli.extract import load_whisper_model
     from wealy_tpu_torch.models.whisper.extract import (
@@ -170,6 +186,47 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="wealy_profile_serve_") as tmp:
         profile_serving(tmp, dev, activities, out)
     print(smi, flush=True)
+    return 0
+
+
+def time_attention_backward(package_root) -> int:
+    import json
+
+    import torch.nn.functional as F
+
+    from chip_smoke import attention_backward_bounds, turns_ms
+
+    if package_root is not None:
+        sys.path.insert(0, os.path.abspath(package_root))
+    from wealy_tpu_torch.ops import flash_attention as fa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for B, T, H in ((4, 1500, 6), (8, 1500, 20)):
+        q, k, v, g = (torch.randn(B, T, H, 64, device=dev, generator=gen).bfloat16()
+                      for _ in range(4))
+        out, lse = fa.flash_mha_fwd(q, k, v, 0.125, with_lse=True)
+        _, delta = fa.flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125)
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            sdpa = F.scaled_dot_product_attention(*leaves, scale=0.125)
+        gt = g.transpose(1, 2)
+        fns = {"dq": lambda: fa.flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125),
+               "dkv": lambda: fa.flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125),
+               "sdpa": lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True)}
+        med = turns_ms(fns, ("sdpa", "dq", "dkv", "dq", "dkv", "sdpa"), 5,
+                       {"dq": 20, "dkv": 20, "sdpa": 20})
+        pair = med["dq"] + med["dkv"]
+        rows.append({"shape": [B, T, H, 64], "k5a_ms": med["dq"], "k5b_ms": med["dkv"],
+                     "k5_ms": pair, "sdpa_bwd_ms": med["sdpa"], "ratio": pair / med["sdpa"],
+                     "floor_ms": attention_backward_bounds(B, T, H)["floor"][0]})
+    print(json.dumps({"package": os.path.abspath(fa.__file__), "card": smi, "rows": rows}),
+          flush=True)
     return 0
 
 

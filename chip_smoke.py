@@ -92,6 +92,53 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over ``iters`` launches, after a warm-up,
+    with the launches queued behind a device-side sleep that outlasts their
+    enqueueing: the events then time the device alone, also where fn's host
+    side (autograd, a library's dispatch) takes longer than its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # one call's enqueueing, a bound for the rest
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(4e9, 4e9 * iters * host_s) + 2e6))  # cycles, about 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def turns_ms(fns: dict, order, reps: int, iters: dict) -> dict:
+    """Median device ms of each of ``fns`` timed in turns: the names in
+    ``order`` (such as plain, kernel, library, kernel, plain) run one after
+    another, ``reps`` times over, each turn one :func:`queued_ms` of
+    ``iters[name]`` launches; so every function sees the same card state,
+    and a slow turn is one reading of several."""
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name in order:
+            times[name].append(queued_ms(fns[name], iters[name]))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def attention_backward_bounds(B: int, T: int, H: int) -> dict:
+    """Bounds (ms, basis) of K5a and K5b at (B, T, H, 64) bf16, and the
+    pair's 5-product floor (S, dP, dQ, dK, dV: a fused backward's work,
+    with every input read once and every output written once)."""
+    size = B * T * H * 64 * 2
+    rows = B * H * T * 4  # f32 lse or delta
+    product = 2 * B * H * T * T * 64
+    return {"dq": bound(5 * size + rows + size + rows, 3 * product, "bf16"),
+            "dkv": bound(4 * size + 2 * rows + 2 * size, 4 * product, "bf16"),
+            "floor": bound(5 * size + rows + 3 * size, 5 * product, "bf16")}
+
+
 def min_row_cos(a: torch.Tensor, b: torch.Tensor) -> float:
     a = a.float().reshape(-1, a.shape[-1])
     b = b.float().reshape(-1, b.shape[-1])
@@ -325,7 +372,10 @@ def main() -> int:
         wanted = [leaves[i] for i in wrt]
         return lambda: torch.autograd.grad(out, wanted, g, retain_graph=True)
 
-    for B, T, H in ((4, 1500, 6), (2, 1500, 20), (2, 257, 6)):
+    # the headline (4, 1500, 6) first (record() keeps it), then phase 14's
+    # fine-tune shape (8, 1500, 20); timed in turns (plain, kernel, SDPA,
+    # kernel, plain) three times over, medians
+    for B, T, H in ((4, 1500, 6), (2, 1500, 20), (8, 1500, 20), (2, 257, 6)):
         q, k, v, g = (torch.randn(B, T, H, 64, device=dev, generator=gen).bfloat16()
                       for _ in range(4))
         out, lse = flash_mha_fwd(q, k, v, 0.125, with_lse=True)
@@ -337,36 +387,42 @@ def main() -> int:
         plain_dq, plain_dkv = plain_backward(q, k, v, g, (0,)), plain_backward(q, k, v, g, (1, 2))
         want = (*plain_dq(), *plain_dkv())
         agree = [bf16_agreement(got, w, BF16_GRAD_COS_MIN) for got, w in zip((dq, dk, dv), want)]
+        del want
         ok = check(all(a[0] for a in agree) and same,
                    f"K5a/K5b B={B} T={T} H={H}: (ok, max abs, min cos) dq/dk/dv {agree}, "
                    f"repeat bit-equal {same}")
-        ms_dq = cuda_ms(lambda: flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125), 10)
-        ms_dkv = cuda_ms(lambda: flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125), 10)
-        pms_dq, pms_dkv = cuda_ms(plain_dq, 5), cuda_ms(plain_dkv, 5)
         # the library call: SDPA's backward, dq, dk and dv together (K5a + K5b)
         leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
             sdpa = F.scaled_dot_product_attention(*leaves, scale=0.125)
         gt = g.transpose(1, 2)
-        lib = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True), 10)
+        fns = {"plain_dq": plain_dq, "plain_dkv": plain_dkv,
+               "dq": lambda: flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125),
+               "dkv": lambda: flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125),
+               "sdpa": lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True)}
+        med = turns_ms(fns, ("plain_dq", "plain_dkv", "dq", "dkv", "sdpa", "dq", "dkv",
+                             "plain_dq", "plain_dkv"), 3,
+                       {"plain_dq": 2, "plain_dkv": 2, "dq": 10, "dkv": 10, "sdpa": 10})
         shape = f"B={B} T={T} H={H} Dh=64"
-        size = q.numel() * 2
-        rows = B * H * T * 4  # f32 lse or delta
-        bnd_dq = bound(5 * size + rows + size + rows, 3 * 2 * B * H * T * T * 64, "bf16")
-        bnd_dkv = bound(4 * size + 2 * rows + 2 * size, 4 * 2 * B * H * T * T * 64, "bf16")
+        bnd = attention_backward_bounds(B, T, H)
+        pair = med["dq"] + med["dkv"]
         say(f"[12 K5a/K5b attention backward] {shape}: dq/dk/dv max_abs_err "
             f"{agree[0][1]:.3g}/{agree[1][1]:.3g}/{agree[2][1]:.3g} min_cos "
             f"{agree[0][2]:.6f}/{agree[1][2]:.6f}/{agree[2][2]:.6f}, repeat bit-equal {same} "
-            f"{'ok' if ok else 'FAIL'}; K5a {ms_dq:.3f} ms (plain dq {pms_dq:.3f} ms, bound "
-            f"{bnd_dq[0]:.4f} ms {bnd_dq[1]}), K5b {ms_dkv:.3f} ms (plain dk+dv {pms_dkv:.3f} ms, "
-            f"bound {bnd_dkv[0]:.4f} ms {bnd_dkv[1]}); SDPA backward (dq+dk+dv) {lib:.3f} ms")
+            f"{'ok' if ok else 'FAIL'}; medians of 3 rounds of turns: K5a {med['dq']:.4f} ms (plain dq "
+            f"{med['plain_dq']:.3f} ms, bound {bnd['dq'][0]:.4f} ms {bnd['dq'][1]}), K5b "
+            f"{med['dkv']:.4f} ms (plain dk+dv {med['plain_dkv']:.3f} ms, bound "
+            f"{bnd['dkv'][0]:.4f} ms {bnd['dkv'][1]}); K5a+K5b {pair:.4f} ms, SDPA backward "
+            f"(dq+dk+dv) {med['sdpa']:.4f} ms, ratio {pair / med['sdpa']:.2f}; the pair's "
+            f"5-product floor {bnd['floor'][0]:.4f} ms")
         record("flash_mha_bwd_dq", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
-               "wealy_tpu/ops/flash_attention.py:171", agree[0][1], ms_dq, pms_dq, shape, bnd_dq,
-               lib)
+               "wealy_tpu/ops/flash_attention.py:171", agree[0][1], med["dq"], med["plain_dq"],
+               shape, bnd["dq"], med["sdpa"])
         record("flash_mha_bwd_dkv", "wealy_tpu_torch/csrc/flash_attention_bwd.cu",
-               "wealy_tpu/ops/flash_attention.py:197", max(agree[1][1], agree[2][1]), ms_dkv,
-               pms_dkv, shape, bnd_dkv, lib)
-    del q, k, v, g, out, lse, dq, dk, dv, dq2, dk2, dv2, want, plain_dq, plain_dkv, sdpa, leaves
+               "wealy_tpu/ops/flash_attention.py:197", max(agree[1][1], agree[2][1]), med["dkv"],
+               med["plain_dkv"], shape, bnd["dkv"], med["sdpa"])
+        del fns
+    del q, k, v, g, out, lse, dq, dk, dv, dq2, dk2, dv2, plain_dq, plain_dkv, sdpa, leaves
     torch.cuda.empty_cache()
 
     # 16. K6 against _reference_ln at the JAX docstring's shape, turbo width,

@@ -2,7 +2,9 @@
 against its plain PyTorch version at the main path's shapes; these tests
 cover the edges it does not: a lone clip and a zero-padded tail (K1), one
 query or key and unequal query and key lengths (K2, and the backward
-K5a/K5b with repeat calls bit-equal), one row and rows that fill no tile
+K5a/K5b with repeat calls bit-equal, at the edges of its tile ring, with a
+ragged tile inside a batch, 20 heads, scores of +-60 and a misaligned view
+that it refuses), one row and rows that fill no tile
 (K3), tiles of one row or the widest side and bpwr-n rounds (K4, bit-equal
 to its plain version), the launch counters, the shapes the kernels refuse,
 the encoder's routing through K2 and K3, the gradient of a two-block
@@ -90,14 +92,39 @@ def test_flash_kernel_edges(dev, B, Tq, Tk, H):
     _assert_bf16_close(got, _reference_mha(q, k, v, 0.125))
 
 
-@pytest.mark.parametrize("B,Tq,Tk,H", [(1, 1, 1, 1), (2, 17, 45, 2), (1, 65, 64, 3),
-                                        (1, 300, 129, 2)])
-def test_flash_backward_kernel_edges(dev, B, Tq, Tk, H):
+@pytest.mark.parametrize("B,Tq,Tk,H,shift", [
+    (1, 1, 1, 1, 0.0), (2, 17, 45, 2, 0.0), (1, 65, 64, 3, 0.0), (1, 300, 129, 2, 0.0),
+    # the edges of the two-stage ring: one tile, exactly the stage count, one more
+    (1, 64, 64, 1, 0.0), (1, 128, 128, 2, 0.0), (1, 129, 129, 2, 0.0),
+    # a ragged last tile (28 rows) inside a batch other than the last, Tq = Tk and Tq != Tk
+    (3, 1500, 1500, 2, 0.0), (2, 100, 1500, 2, 0.0),
+    (1, 200, 300, 20, 0.0),  # the widest head count (large-v3 and turbo)
+    (2, 300, 300, 2, 2.75),  # scaled scores about +60 (head 0) and -60 (head 1)
+])
+def test_flash_backward_kernel_edges(dev, B, Tq, Tk, H, shift):
     """K5a/K5b against autograd of the plain attention, through the
-    autograd Function; repeat calls bit-equal."""
+    autograd Function; repeat calls bit-equal. With ``shift``, q and k are
+    scaled up along one shared direction, the all-ones vector: q moves by
+    shift in every dimension, and k, its own mean over the head dimension
+    taken out, by shift with the sign flipped in odd heads. The scaled
+    scores then reach +-60 while each row's softmax stays near that of the
+    unshifted scores: the kernels' exp2 of s * scale * log2 e - lse * log2 e
+    runs at large arguments. (Scaling q and k up as a whole makes most rows
+    one-hot instead; there dp - delta cancels below the bf16 rounding of
+    ``out`` that delta = rowsum(g * out) reads, in any kernel that reads
+    delta off ``out``. A large shift along one coordinate would amplify the
+    rounding of ds to bf16 in that coordinate of dq, since dq = ds . k and
+    the row of ds sums to 0.)"""
     rng = np.random.default_rng(8)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, t, H, 64)).astype(np.float32)).to(dev)
-               .bfloat16().requires_grad_(True) for t in (Tq, Tk, Tk))
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, t, H, 64)).astype(np.float32))
+               for t in (Tq, Tk, Tk))
+    if shift:
+        q += shift
+        k = k - k.mean(-1, keepdim=True) + shift * torch.tensor(
+            [(-1.0) ** h for h in range(H)])[:, None]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.bfloat16().float(), k.bfloat16().float()) * 0.125
+        assert s[:, 0].max() >= 60 and s[:, 1].min() <= -60
+    q, k, v = (t.to(dev).bfloat16().requires_grad_(True) for t in (q, k, v))
     g = torch.from_numpy(rng.normal(size=(B, Tq, H, 64)).astype(np.float32)).to(dev).bfloat16()
     before = (flash_mha.launches, flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches)
     flash_mha(q, k, v, 0.125).backward(g)
@@ -123,6 +150,15 @@ def test_backward_kernels_refuse(dev):
         flash_mha_bwd_dq(q, q, q, q, q.float(), lse, 0.125)  # f32 cotangent
     with pytest.raises(ValueError, match="flash_mha_bwd_dkv"):
         flash_mha_bwd_dkv(q, q[..., :32], q[..., :32], q, lse, lse, 0.125)
+    # a contiguous view 2 bytes past a 16-byte boundary: TMA cannot read it
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=dev)
+    off = flat[1:1 + q.numel()].view(q.shape)
+    before = (flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mha_bwd_dq(off, q, q, q, q, lse, 0.125)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mha_bwd_dkv(q, q, q, off, lse, lse, 0.125)
+    assert (flash_mha_bwd_dq.launches, flash_mha_bwd_dkv.launches) == before
 
 
 def test_two_block_encoder_gradient_against_plain_path(dev, monkeypatch):

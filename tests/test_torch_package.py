@@ -103,6 +103,28 @@ def test_every_kernel_has_a_source_note():
         assert "What bounds it on an H100" in head, name
 
 
+def test_attention_backward_is_the_hopper_design():
+    """K5a/K5b: every product on wgmma, the streamed tiles through a TMA ring
+    of at least two stages with mbarriers, and no WMMA left."""
+    src = (PKG / "csrc" / "flash_attention_bwd.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "wgmma.mma_async" in code
+    assert "cp.async.bulk.tensor" in code
+    assert "mbarrier.try_wait" in code and "mbarrier.arrive.expect_tx" in code
+    assert int(re.search(r"constexpr int NST = (\d+);", code).group(1)) >= 2
+    assert "cuTensorMapEncodeTiled" in code and "__grid_constant__" in code
+    assert not re.search(r"\bwmma::|nvcuda|<mma\.h>|mma\.sync", code)
+    # nothing of S, dP, p or ds has a place in shared memory: the blocks'
+    # shared arrays are the bf16 input tiles, the staged bf16 outputs and
+    # per-row lse/delta
+    bodies = re.findall(r"struct Smem\w+ \{(.*?)\};", code, re.S)
+    assert len(bodies) == 2
+    arrays = {m for body in bodies for m in re.findall(r"(float|bf16) (\w+\[[^;]*\]);", body)}
+    assert {a for t, a in arrays if t == "float"} <= {"delta[BT]", "lse[NST][BT]",
+                                                      "delta[NST][BT]"}
+    assert all(a.endswith("[TILE]") or a.endswith("[BT * LDO]") for t, a in arrays if t == "bf16")
+
+
 def test_cpu_path_counts_no_launches():
     counters = (log_mel_spectrogram_fused, flash_mha, flash_mha_bwd_dq, flash_mha_bwd_dkv,
                 fused_mlp, bpwr_block_redux, fused_layer_norm)

@@ -11,7 +11,8 @@ needed; under ``torch.no_grad()`` (extraction) it runs the forward alone
 and saves nothing. Each wrapper takes the plain version for a CPU tensor
 (:func:`_reference_mha` and its autograd, :func:`_reference_mha_grads`) and
 launches its kernel for a CUDA tensor; the kernels take bf16 with head dim
-64 (every published Whisper size) and any T >= 1, and the wrappers raise on
+64 (every published Whisper size) and any T >= 1, K5a/K5b from 16-byte
+aligned bases (their tiles arrive by TMA), and the wrappers raise on
 anything else.
 """
 
@@ -67,6 +68,15 @@ def _check(what: str, q, k, v, *more) -> None:
         )
 
 
+def _check_aligned(what: str, *tensors) -> None:
+    """K5a/K5b load tiles through TMA and rows as 16-byte vectors: every
+    base must lie on a 16-byte boundary (a fresh allocation does; a view at
+    an offset may not)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the kernel needs 16-byte aligned q/k/v/out/g (TMA); got "
+                         f"base addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
+
+
 def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     """K2: (out, lse f32 (B, H, Tq) or None)."""
     _check("flash_mha", q, k, v)
@@ -91,6 +101,7 @@ def _launch_dq(q, k, v, out, g, lse, scale: float):
     _check("flash_mha_bwd_dq", q, k, v, out, g)
     B, Tq, H, Dh = q.shape
     q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
+    _check_aligned("flash_mha_bwd_dq", q, k, v, out, g)
     lse = lse.float().contiguous()
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -111,6 +122,7 @@ def _launch_dkv(q, k, v, g, lse, delta, scale: float):
     _check("flash_mha_bwd_dkv", q, k, v, g)
     B, Tq, H, Dh = q.shape
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    _check_aligned("flash_mha_bwd_dkv", q, k, v, g)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(
