@@ -2,9 +2,11 @@
 """Where the device time goes in the PyTorch port (wealy_tpu_torch), on one
 NVIDIA GPU.
 
-    python3 chip_profile.py [--out profile_out]
+    python3 chip_profile.py [--out profile_out] [--only tiny,turbo,...]
 
-Five pipelines, each traced with torch.profiler (CUPTI) after a warm-up:
+Six pipelines, each traced with torch.profiler (CUPTI) after a warm-up
+(``--only`` picks some of them by name: tiny, turbo, evaluate, ranking,
+finetune, serving):
 
 - whisper-tiny mel + bf16 encoder + mean pool at B=64, three batches;
 - large-v3-turbo ``extract_song`` over one 65 s song (3 chunks, x_concat and
@@ -32,15 +34,18 @@ time (the union of the intervals of kernels, copies and sets), the idle
 share, and the kernels by device time. The profiler's own tables go to
 ``--out``.
 
-    python3 chip_profile.py --attention-backward [--package-root DIR]
+    python3 chip_profile.py --kernels [--package-root DIR]
 
-times the attention backward (K5a + K5b) against SDPA's backward (dq, dk and
-dv together) in turns (chip_smoke.py's ``turns_ms``: SDPA, K5a, K5b, K5a,
-K5b, SDPA, five times over, medians) at (4, 1500, 6, 64) and (8, 1500, 20,
-64), with ``wealy_tpu_torch`` imported from DIR (default: this checkout), so
-that two checkouts can be compared within one call on one card by their
-ratio to the library call. It prints one JSON line. Refuses to run without
-CUDA.
+times the redesigned kernels against the one PyTorch call that computes the
+same function, in turns (chip_smoke.py's ``turns_ms``: library, kernel,
+kernel, library, five times over, medians, launches queued behind a device
+sleep): K1 against a ``torch.stft`` log-mel at B=8 and B=64 (80 mels), K2
+against SDPA's forward at (4, 1500, 6, 64), (8, 1500, 20, 64) and (64, 1500,
+6, 64), and K5a + K5b against SDPA's backward (dq, dk and dv together) at
+(4, 1500, 6, 64) and (8, 1500, 20, 64), with ``wealy_tpu_torch`` imported
+from DIR (default: this checkout), so that two checkouts can be compared
+within one call on one card by their ratios to the library calls. It
+prints one JSON line. Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -95,30 +100,25 @@ def report(label: str, prof, wall_ms: float, out: Path, top: int = 14) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="profile_out", help="directory for the tables")
-    ap.add_argument("--attention-backward", action="store_true",
-                    help="time K5a + K5b against SDPA's backward in turns, and nothing else")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K1, K2 and K5a + K5b against their library calls in turns, "
+                         "and nothing else")
     ap.add_argument("--package-root", default=None,
-                    help="checkout whose wealy_tpu_torch --attention-backward times")
+                    help="checkout whose wealy_tpu_torch --kernels times")
+    ap.add_argument("--only", default="tiny,turbo,evaluate,ranking,finetune,serving",
+                    help="comma-separated pipelines to trace, in this order")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if args.attention_backward:
-        return time_attention_backward(args.package_root)
-    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
-    from wealy_tpu_torch.cli.extract import load_whisper_model
-    from wealy_tpu_torch.models.whisper.extract import (
-        chunk_waveform,
-        decoder_embeddings,
-        encoder_embeddings,
-        encoder_states,
-        extract_song,
-    )
-
+    if args.kernels:
+        return time_kernels(args.package_root)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    torch.backends.cuda.matmul.allow_tf32 = False  # decode logits are f32 products
+    # decode logits are f32 products, the heads' convolutions f32: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -126,8 +126,20 @@ def main() -> int:
     ).stdout.strip()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | {smi}", flush=True)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for name in args.only.split(","):
+        if name not in PIPELINES:
+            raise SystemExit(f"--only: unknown pipeline {name!r}; known: {', '.join(PIPELINES)}")
+        PIPELINES[name](dev, activities, out)
+    print(smi, flush=True)
+    return 0
 
-    # whisper-tiny embedding pipeline, B=64
+
+def profile_tiny(dev, activities, out: Path) -> None:
+    """whisper-tiny embedding pipeline, B=64."""
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.models.whisper.extract import encoder_embeddings
+
     model, cfg = load_whisper_model("tiny", seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     batch = torch.randn(64, 480000, device=dev, generator=gen) * 0.1
@@ -146,9 +158,19 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report("tiny_embed_B64_x3", prof, wall, out)
-    del model
 
-    # large-v3-turbo extract_song, one 65 s song
+
+def profile_turbo(dev, activities, out: Path) -> None:
+    """large-v3-turbo extract_song, one 65 s song."""
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.models.whisper.extract import (
+        chunk_waveform,
+        decoder_embeddings,
+        encoder_states,
+        extract_song,
+    )
+
     model, cfg = load_whisper_model("large-v3-turbo", seed=0, device=dev)
     song = (0.1 * np.random.default_rng(1).normal(size=65 * 16000)).astype(np.float32)
     kinds = ("x_concat", "hs_last_seq")
@@ -177,19 +199,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report("turbo_extract_song_65s", prof, wall, out)
-    del model
-    torch.backends.cudnn.allow_tf32 = False  # the evaluate head's convolutions in f32
-    with tempfile.TemporaryDirectory(prefix="wealy_profile_") as tmp:
-        profile_evaluate(tmp, dev, activities, out)
-    profile_ranking(dev, activities, out)
-    profile_finetune(dev, activities, out)
-    with tempfile.TemporaryDirectory(prefix="wealy_profile_serve_") as tmp:
-        profile_serving(tmp, dev, activities, out)
-    print(smi, flush=True)
-    return 0
 
 
-def time_attention_backward(package_root) -> int:
+def time_kernels(package_root) -> int:
+    import inspect
     import json
 
     import torch.nn.functional as F
@@ -198,39 +211,82 @@ def time_attention_backward(package_root) -> int:
 
     if package_root is not None:
         sys.path.insert(0, os.path.abspath(package_root))
+    from wealy_tpu_torch.audio import fused_mel
+    from wealy_tpu_torch.audio import mel as tmel
     from wealy_tpu_torch.ops import flash_attention as fa
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
+    iters = {"kernel": 20, "library": 20}
+    order = ("library", "kernel", "kernel", "library")
     rows = []
+
+    window = torch.hann_window(tmel.N_FFT, device=dev)
+    melw = tmel.bases(80, dev)[2]
+    for B in (8, 64):
+        audio = torch.randn(B, tmel.N_SAMPLES, device=dev, generator=gen) * 0.1
+
+        def stft_log_mel():
+            spec = torch.stft(audio, tmel.N_FFT, tmel.HOP_LENGTH, window=window,
+                              return_complex=True)
+            mel = melw.T @ spec[..., :-1].abs().square()
+            return tmel.finish_log_mel(torch.log10(torch.clamp_min(mel, 1e-10)))
+
+        med = turns_ms({"kernel": lambda: fused_mel.log_mel_spectrogram_fused(audio, 80),
+                        "library": stft_log_mel}, order, 5, iters)
+        rows.append({"kernel": "K1", "shape": [B, 80], "ms": med["kernel"],
+                     "library": "torch.stft mel", "library_ms": med["library"],
+                     "ratio": med["kernel"] / med["library"]})
+    del audio
+    for B, T, H in ((4, 1500, 6), (8, 1500, 20), (64, 1500, 6)):
+        q, k, v = (torch.randn(B, T, H, 64, device=dev, generator=gen).bfloat16()
+                   for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        med = turns_ms({"kernel": lambda: fa.flash_mha(q, k, v, 0.125),
+                        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          scale=0.125)},
+                       order, 5, iters)
+        rows.append({"kernel": "K2", "shape": [B, T, H, 64], "ms": med["kernel"],
+                     "library": "SDPA forward", "library_ms": med["library"],
+                     "ratio": med["kernel"] / med["library"]})
+    # a checkout from before K5a stopped reading the forward's output takes it
+    takes_out = "out" in inspect.signature(fa.flash_mha_bwd_dq).parameters
     for B, T, H in ((4, 1500, 6), (8, 1500, 20)):
         q, k, v, g = (torch.randn(B, T, H, 64, device=dev, generator=gen).bfloat16()
                       for _ in range(4))
         out, lse = fa.flash_mha_fwd(q, k, v, 0.125, with_lse=True)
-        _, delta = fa.flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125)
+        dq_args = (q, k, v, out, g, lse, 0.125) if takes_out else (q, k, v, g, lse, 0.125)
+        _, delta = fa.flash_mha_bwd_dq(*dq_args)
         leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
             sdpa = F.scaled_dot_product_attention(*leaves, scale=0.125)
         gt = g.transpose(1, 2)
-        fns = {"dq": lambda: fa.flash_mha_bwd_dq(q, k, v, out, g, lse, 0.125),
+        fns = {"dq": lambda: fa.flash_mha_bwd_dq(*dq_args),
                "dkv": lambda: fa.flash_mha_bwd_dkv(q, k, v, g, lse, delta, 0.125),
-               "sdpa": lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True)}
-        med = turns_ms(fns, ("sdpa", "dq", "dkv", "dq", "dkv", "sdpa"), 5,
-                       {"dq": 20, "dkv": 20, "sdpa": 20})
+               "library": lambda: torch.autograd.grad(sdpa, leaves, gt, retain_graph=True)}
+        med = turns_ms(fns, ("library", "dq", "dkv", "dq", "dkv", "library"), 5,
+                       {"dq": 20, "dkv": 20, "library": 20})
         pair = med["dq"] + med["dkv"]
-        rows.append({"shape": [B, T, H, 64], "k5a_ms": med["dq"], "k5b_ms": med["dkv"],
-                     "k5_ms": pair, "sdpa_bwd_ms": med["sdpa"], "ratio": pair / med["sdpa"],
+        rows.append({"kernel": "K5a+K5b", "shape": [B, T, H, 64], "k5a_ms": med["dq"],
+                     "k5b_ms": med["dkv"], "ms": pair, "library": "SDPA backward",
+                     "library_ms": med["library"], "ratio": pair / med["library"],
                      "floor_ms": attention_backward_bounds(B, T, H)["floor"][0]})
     print(json.dumps({"package": os.path.abspath(fa.__file__), "card": smi, "rows": rows}),
           flush=True)
     return 0
 
 
-def profile_evaluate(tmp: str, dev, activities, out: Path) -> None:
+def profile_evaluate(dev, activities, out: Path) -> None:
+    with tempfile.TemporaryDirectory(prefix="wealy_profile_") as tmp:
+        profile_evaluate_in(tmp, dev, activities, out)
+
+
+def profile_evaluate_in(tmp: str, dev, activities, out: Path) -> None:
     from chip_smoke import write_project
     from wealy_tpu_torch.cli.main import _pad_chunk_sets, build_parser, evaluate, load_head
     from wealy_tpu_torch.data.chunking import collate_overlapping
@@ -342,8 +398,13 @@ def profile_finetune(dev, activities, out: Path, B: int = 8) -> None:
     report(f"turbo_finetune_step_B{B}", prof, wall, out, top=20)
 
 
-def profile_serving(tmp: str, dev, activities, out: Path, n: int = 10547, smax: int = 18,
-                    zdim: int = 512, Q: int = 16) -> None:
+def profile_serving(dev, activities, out: Path) -> None:
+    with tempfile.TemporaryDirectory(prefix="wealy_profile_serve_") as tmp:
+        profile_serving_in(tmp, dev, activities, out)
+
+
+def profile_serving_in(tmp: str, dev, activities, out: Path, n: int = 10547, smax: int = 18,
+                       zdim: int = 512, Q: int = 16) -> None:
     from chip_smoke import serving_config, write_index
     from wealy_tpu_torch.cli.serve import QueryEngine
     from wealy_tpu_torch.train.config import Config
@@ -366,6 +427,10 @@ def profile_serving(tmp: str, dev, activities, out: Path, n: int = 10547, smax: 
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report(f"serving_exact_Q{Q}_x_{n}", prof, wall, out)
+
+
+PIPELINES = {"tiny": profile_tiny, "turbo": profile_turbo, "evaluate": profile_evaluate,
+             "ranking": profile_ranking, "finetune": profile_finetune, "serving": profile_serving}
 
 
 if __name__ == "__main__":

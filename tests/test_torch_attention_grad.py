@@ -3,9 +3,10 @@
 - The attention backward (``flash_mha`` as a ``torch.autograd.Function``)
   against the JAX package's Pallas backward ``_flash_mha_bwd_impl`` run in
   TPU interpret mode, as tests/test_flash_attention.py runs it:
-  (1, 200, 2, 64) and (2, 300, 2, 64), rtol/atol 2e-3.
-- The FlashAttention-2 identity the kernels K5a/K5b use:
-  rowsum(g * out) = rowsum(p * dp).
+  (1, 200, 2, 64) and (2, 300, 2, 64), rtol/atol 2e-3, and rows whose
+  softmax is nearly one-hot (q and k scaled up).
+- The delta K5a writes and K5b reads: rowsum(p * dp) in f32, the TPU
+  kernels' form.
 - ``fused_mlp``'s backward against the JAX ``custom_vjp``.
 - The gradient wiring of the kernel route: with the kernel launches replaced
   by their plain versions, an encoder's q/k/v projections and MLP weights
@@ -51,14 +52,35 @@ def test_attention_backward_matches_jax_pallas_interpret(shape):
                                    err_msg=name)
 
 
+def test_attention_backward_one_hot_rows_match_jax_pallas_interpret():
+    """Rows whose softmax is nearly one-hot (q and k scaled up 3.7x, scaled
+    scores to about +-50), where dp - delta cancels: the port's backward
+    against the Pallas backward in TPU interpret mode, rtol/atol 2e-3 (both
+    f32; the JAX kernels sum delta = rowsum(p * dp) as the port does)."""
+    rng = np.random.default_rng(61)
+    q, k = (rng.normal(size=(1, 200, 2, 64)).astype(np.float32) * 3.7 for _ in range(2))
+    v, g = (rng.normal(size=(1, 200, 2, 64)).astype(np.float32) for _ in range(2))
+    scale = 64**-0.5
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", torch.from_numpy(q),
+                                   torch.from_numpy(k)) * scale, dim=-1)
+    assert (p.amax(-1) > 0.99).float().mean() > 0.3  # a third of the rows nearly one-hot
+    with pltpu.force_tpu_interpret_mode():
+        want = _flash_mha_bwd_impl(*(jnp.asarray(a) for a in (q, k, v, g)), scale, 128)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    fa.flash_mha(*leaves, scale).backward(torch.from_numpy(g))
+    for t, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=2e-3, atol=2e-3,
+                                   err_msg=name)
+
+
 def test_backward_wrappers_and_delta_identity():
     """flash_mha_bwd_dq / _dkv on CPU tensors: the plain gradients, and the
     delta K5a writes equals rowsum(p * dp) of the TPU kernel's form."""
     q, k, v, g = (torch.from_numpy(a) for a in _qkvg((2, 37, 3, 64), seed=5))
     scale = 0.125
-    out, lse = fa.flash_mha_fwd(q, k, v, scale, with_lse=True)
+    _, lse = fa.flash_mha_fwd(q, k, v, scale, with_lse=True)
     assert lse is None  # the plain backward needs none
-    dq, delta = fa.flash_mha_bwd_dq(q, k, v, out, g, lse, scale)
+    dq, delta = fa.flash_mha_bwd_dq(q, k, v, g, lse, scale)
     dk, dv = fa.flash_mha_bwd_dkv(q, k, v, g, lse, delta, scale)
     ref = fa._reference_mha_grads(q, k, v, g, scale)
     for a, b in zip((dq, dk, dv), ref):
@@ -108,9 +130,9 @@ def _plain_launches(monkeypatch):
         lse = torch.logsumexp(s, dim=-1) if with_lse else None
         return fa._reference_mha(q, k, v, scale).detach(), lse
 
-    def dq(q, k, v, out, g, lse, scale):
+    def dq(q, k, v, g, lse, scale):
         calls["dq"] += 1
-        delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = fa._reference_delta(q, k, v, g, scale)
         return fa._reference_mha_grads(q, k, v, g, scale, wrt=(0,))[0], delta
 
     def dkv(q, k, v, g, lse, delta, scale):

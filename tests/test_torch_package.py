@@ -103,26 +103,82 @@ def test_every_kernel_has_a_source_note():
         assert "What bounds it on an H100" in head, name
 
 
-def test_attention_backward_is_the_hopper_design():
-    """K5a/K5b: every product on wgmma, the streamed tiles through a TMA ring
-    of at least two stages with mbarriers, and no WMMA left."""
-    src = (PKG / "csrc" / "flash_attention_bwd.cu").read_text()
-    code = "\n".join(line.split("//")[0] for line in src.splitlines())
-    assert "wgmma.mma_async" in code
+def _code(name: str) -> str:
+    """A kernel source without its comments."""
+    src = (PKG / "csrc" / name).read_text()
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
+def _shared_arrays(code: str, n_structs: int) -> set:
+    """The (type, declarator) of every float/bf16 array in the blocks'
+    shared-memory structs."""
+    bodies = re.findall(r"struct Smem\w* \{(.*?)\};", code, re.S)
+    assert len(bodies) == n_structs
+    return {m for body in bodies for m in re.findall(r"(float2?|bf16) (\w+\[[^;]*\]);", body)}
+
+
+def test_hopper_header_holds_the_building_blocks():
+    """The mbarrier, TMA, descriptor and wgmma wrappers and the tensor-map
+    encoding live once, in csrc/hopper.cuh, for K2 and K5a/K5b."""
+    code = _code("hopper.cuh")
+    assert "wgmma.mma_async" in code and "wgmma.wait_group" in code
     assert "cp.async.bulk.tensor" in code
     assert "mbarrier.try_wait" in code and "mbarrier.arrive.expect_tx" in code
+    assert "cuTensorMapEncodeTiled" in code and "__trap()" in code
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        kernel = _code(name)
+        assert '#include "hopper.cuh"' in kernel, name
+        assert "asm volatile" not in kernel and "EncodeTiled" not in kernel, name
+
+
+def test_attention_backward_is_the_hopper_design():
+    """K5a/K5b: every product on wgmma, the streamed tiles through a TMA ring
+    of at least two stages with mbarriers, and no WMMA left; K5a sums delta
+    from p and dp in a first sweep over the key tiles and reads no forward
+    output."""
+    code = _code("flash_attention_bwd.cu")
+    for call in ("wgmma_ss(", "wgmma_rs(", "tma_load(", "mbar_wait(", "mbar_expect_tx("):
+        assert call in code, call
     assert int(re.search(r"constexpr int NST = (\d+);", code).group(1)) >= 2
-    assert "cuTensorMapEncodeTiled" in code and "__grid_constant__" in code
+    assert "tile_map(" in code and "__grid_constant__" in code
     assert not re.search(r"\bwmma::|nvcuda|<mma\.h>|mma\.sync", code)
+    dq_kernel = code[code.index("flash_bwd_dq_kernel("):code.index("flash_bwd_dkv_kernel(")]
+    assert "2 * n_tiles" in dq_kernel and "out" not in re.findall(r"\w+", dq_kernel.split("{")[0])
     # nothing of S, dP, p or ds has a place in shared memory: the blocks'
     # shared arrays are the bf16 input tiles, the staged bf16 outputs and
     # per-row lse/delta
-    bodies = re.findall(r"struct Smem\w+ \{(.*?)\};", code, re.S)
-    assert len(bodies) == 2
-    arrays = {m for body in bodies for m in re.findall(r"(float|bf16) (\w+\[[^;]*\]);", body)}
-    assert {a for t, a in arrays if t == "float"} <= {"delta[BT]", "lse[NST][BT]",
-                                                      "delta[NST][BT]"}
+    arrays = _shared_arrays(code, 2)
+    assert {a for t, a in arrays if t == "float"} <= {"lse[NST][BT]", "delta[NST][BT]"}
     assert all(a.endswith("[TILE]") or a.endswith("[BT * LDO]") for t, a in arrays if t == "bf16")
+
+
+def test_attention_forward_is_the_hopper_design():
+    """K2: S = Q.K^T and O += P.V on wgmma (P from registers), K/V through a
+    TMA ring of at least two stages with mbarriers and a producer warp, no
+    WMMA, and S, P and O never in shared memory (only the input tiles and
+    the staged bf16 output are)."""
+    code = _code("flash_attention.cu")
+    assert "wgmma_ss(" in code and "wgmma_rs(" in code
+    assert "tma_load(" in code and "mbar_wait(" in code and "mbar_arrive(" in code
+    assert int(re.search(r"constexpr int NST = (\d+);", code).group(1)) >= 2
+    assert "__grid_constant__ CUtensorMap" in code
+    assert not re.search(r"\bwmma::|nvcuda|<mma\.h>|mma\.sync", code)
+    assert code.count("__syncthreads") == 1  # after the barriers' init, none in the loop
+    arrays = _shared_arrays(code, 1)
+    assert not {a for t, a in arrays if t.startswith("float")}
+    assert all(a.endswith("[TILE]") or a.endswith("[BT * LDO]") for t, a in arrays)
+
+
+def test_log_mel_is_the_fft_route():
+    """K1: no dense (400, 201) DFT basis; an FFT plan (radix-8 and radix-5
+    stages, the real split) and the mel product over each band's bins."""
+    code = _code("log_mel.cu")
+    assert "wcos" not in code and "wsin" not in code
+    assert "dft8(" in code and "dft5<" in code and "PLAN_SPLIT" in code
+    assert "band_w" in code and "count" in code
+    assert "tf32" not in code.lower() and "wmma" not in code and "mma" not in code
+    sig = _build.SIGNATURES["wealy_log_mel"]
+    assert len(sig) == 11  # audio, plan, band, band_w, out, 5 ints, stream
 
 
 def test_cpu_path_counts_no_launches():
@@ -154,7 +210,7 @@ def test_non_cuda_device_raises():
         flash_mha(q, q, q, 0.125)
     lse = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError, match="flash_mha_bwd_dq"):
-        flash_mha_bwd_dq(q, q, q, q, q, lse, 0.125)
+        flash_mha_bwd_dq(q, q, q, q, lse, 0.125)
     with pytest.raises(ValueError, match="flash_mha_bwd_dkv"):
         flash_mha_bwd_dkv(q, q, q, q, lse, lse, 0.125)
     with pytest.raises(ValueError, match="log_mel"):
@@ -181,7 +237,7 @@ def test_build_flags_and_source_hash():
     assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     names = {p.name for p in _build.sources()}
     assert {"log_mel.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused_mlp.cu",
-            "bpwr_redux.cu", "layer_norm.cu", "common.cuh"} <= names
+            "bpwr_redux.cu", "layer_norm.cu", "common.cuh", "hopper.cuh"} <= names
     assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd",
                                       "wealy_flash_mha_bwd_dq", "wealy_flash_mha_bwd_dkv",
                                       "wealy_fused_mlp", "wealy_bpwr_redux", "wealy_layer_norm"}

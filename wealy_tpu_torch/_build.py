@@ -42,12 +42,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
-    # audio, wcos, wsin, melw, out, batch, n_samples, n_frames, n_mels, stream
-    "wealy_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # audio, plan, band, band_w, out, batch, n_samples, n_frames, n_mels, band_width, stream
+    "wealy_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse (or null), batch, tq, tk, heads, head_dim, scale, stream
     "wealy_flash_mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, g, lse, delta, dq, batch, tq, tk, heads, head_dim, scale, stream
-    "wealy_flash_mha_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, g, lse, delta, dq, batch, tq, tk, heads, head_dim, scale, stream
+    "wealy_flash_mha_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, g, lse, delta, dk, dv, batch, tq, tk, heads, head_dim, scale, stream
     "wealy_flash_mha_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, hidden, out, rows, d_model, d_ff, stream

@@ -8,200 +8,238 @@
 // division by the row sum after PV. The TPU kernel's constant shift of -24
 // and score clamp at 60 are not carried over: the running row max is exact.
 //
-// What bounds it on an H100: at T=1500, Dh=64 the two products are
-// 2 x T^2 x Dh MACs per head against 4 x T x Dh x 2 bytes of q/k/v/out, so it
-// is compute-bound (about 750 bf16 FLOP per byte); the (T, T) score matrix
-// never reaches device memory. K and V of one head are 192 KB each in bf16,
-// which do not both fit in 227 KB of shared memory, so instead of the TPU
-// kernel's resident K/V the block streams 64-key tiles through shared
-// memory and keeps a running max and row sum per query row (flash
-// attention). Products run on the tensor cores through WMMA 16x16x16 bf16
-// fragments with f32 accumulators; the rescaling of the output rows goes
-// through shared memory because WMMA fragments have an opaque layout.
-// This first version has no cp.async/TMA pipelining and no wgmma.
+// What bounds it on an H100: the tensor cores. At T = 1500, Dh = 64 the two
+// products are 2 x T^2 x Dh MACs per head against 4 x T x Dh x 2 bytes of
+// q/k/v/out, about 750 bf16 FLOP per byte, far above the card's 295; the
+// (T, T) score matrix never reaches device memory. K and V of one head are
+// 192 KB each in bf16, which do not both fit in 227 KB of shared memory, so
+// instead of the TPU kernel's resident K/V the block streams 64-key tiles
+// and keeps a running max and row sum per query row (flash attention). At
+// head dim 64 the softmax's exp2 per score costs about as much issue time
+// as that score's share of the two products, so the design keeps the
+// tensor cores busy while the exponentials run:
+//
+// - One block owns one (b, h) and 64 query rows: one consumer warpgroup
+//   (128 threads) and one producer warp. Its Q tile is loaded once by TMA
+//   and stays resident as the wgmma A operand, from shared memory. Four
+//   blocks fit an SM (at most 96 registers a thread, 50 KB of shared memory
+//   each), so one block's softmax runs while the others' products do. On an
+//   H100 this was faster than two consumer warpgroups sharing each K/V tile
+//   (at two blocks per SM ptxas caps them at 96 registers), than three ring
+//   stages at three blocks per SM, and than one warpgroup issuing the next
+//   tile's S before its softmax (ptxas serialises wgmma whose accumulators
+//   are read while another runs).
+// - K and V arrive as 64 x 64 bf16 tiles through a ring of NST stages, by
+//   TMA (cp.async.bulk.tensor) from 3-D tensor maps over (batch, T,
+//   heads * 64) that zero-fill rows past T, so the ragged last tile of one
+//   batch never reads the next batch's rows; one full and one empty
+//   mbarrier per stage; one producer warp issues every load.
+// - S = Q.K^T is an m64n64k16 wgmma with K as the K-major B operand. The
+//   online softmax runs on the accumulator registers (layout in hopper.cuh):
+//   keys >= Tk set to -inf by index (in the last tile only), the row max
+//   across the quad of threads that share a row, exp2 with scale * log2 e
+//   folded into one FMA, the row-sum and the rescale of the f32 O
+//   accumulator by alpha in registers (skipped by a warp whose rows all
+//   kept their max). P is packed
+//   to bf16 register A fragments, and O += P.V reads V as the MN-major
+//   (transposed) B operand from the same swizzled tile. S, P and O never
+//   reach shared memory; there is no __syncthreads in the loop.
+// - Epilogue: O / l rounded to bf16, staged in shared memory and written as
+//   16-byte stores; query rows >= Tq are not written.
 //
 // With a non-null `lse` the kernel also writes each query row's
-// log-sum-exp of the scaled scores, f32 (B, H, Tq): the softmax statistic
-// that the backward kernels K5a/K5b (flash_attention_bwd.cu) recompute the
-// probabilities from. Inference passes null and writes nothing more.
+// log-sum-exp of the scaled scores, m + log(l), f32 (B, H, Tq): the softmax
+// statistic that the backward kernels K5a/K5b (flash_attention_bwd.cu)
+// recompute the probabilities from. Inference passes null and writes
+// nothing more.
 //
-// Layout: q, k, v and out are read and written in the natural
-// (B, T, H, Dh) layout (row stride H*Dh), as the TPU kernel does. The
-// ragged key tail (1500 is not a multiple of 64) is zero-filled in shared
-// memory and masked to -inf before the softmax; ragged query rows are
-// computed on zeros and not written.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// Layout: q, k, v and out are read and written in the natural (B, T, H, Dh)
+// layout (row stride H*Dh), as the TPU kernel does, from 16-byte aligned
+// bases (TMA). The building blocks (mbarriers, TMA, descriptors, wgmma,
+// tensor maps) are in hopper.cuh, shared with K5a/K5b.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int DH = 64;        // head dim (every published Whisper size)
-constexpr int BQ = 64;        // query rows per block, 16 per warp
-constexpr int BK = 64;        // keys per tile
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = DH + 8;   // bf16 row stride of the q/k/v tiles (144 B)
-constexpr int LDP = BK + 8;   // bf16 row stride of the probability tile
-constexpr int LDS = BK + 4;   // f32 row stride of the score / output tiles (BK == DH)
+constexpr int NST = 2;                   // stages of the K/V ring
+constexpr int CONSUMERS = WG;            // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 
-struct Smem {
-  bf16 q[BQ * LDH];
-  bf16 k[BK * LDH];
-  bf16 v[BK * LDH];
-  bf16 p[WARPS][16 * LDP];
-  float s[WARPS][16 * LDS];  // scores, then the tile's PV product
-  float o[WARPS][16 * LDS];  // running (unnormalised) output rows
+struct SmemFwd {
+  bf16 q[TILE];        // the resident A operand (1024-byte aligned, swizzled by TMA)
+  bf16 k[NST][TILE];   // the ring
+  bf16 v[NST][TILE];
+  bf16 out[BT * LDO];  // O in bf16, staged for 16-byte stores
+  uint64_t full[NST], empty[NST], res;
 };
 
-// rows [t0, t0+64) of one head into a (64, LDH) shared tile, zeros past t_len
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int t0, int t_len,
-                                          size_t row_stride) {
-  for (int idx = threadIdx.x; idx < 64 * (DH / 8); idx += THREADS) {
-    const int r = idx / (DH / 8);
-    const int c = idx % (DH / 8);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < t_len) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(t0 + r) * row_stride + c * 8);
+__device__ __forceinline__ float ex2(float x) {  // 2^x (MUFU), flushing subnormals to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the online softmax of one score tile (keys [key0, key0 + 64)) on the
+// accumulator registers: s becomes p = 2^(s * scale2 - m) with keys >= tk
+// at 0, m the updated running row max of s * scale2 (log2 units), alpha
+// its rescale of the earlier terms; l (this thread's partial row sums) is
+// rescaled and takes the new p. Only the last tile can hold keys >= tk.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int key0, int tk,
+                                               float scale2) {
+  const int lane = threadIdx.x % 32;
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (key0 + BT > tk) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (key0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2) >= tk) s[i] = -INFINITY;
     }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c * 8) = val;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {  // the four threads of a quad share a row
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+    const float m_new = fmaxf(m[hi], mx[hi] * scale2);  // finite: every tile holds a key
+    alpha[hi] = ex2(m[hi] - m_new);  // 0 on the first tile (m = -inf)
+    m[hi] = m_new;
+    l[hi] *= alpha[hi];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(fmaf(s[i], scale2, -m[(i % 4) / 2]));
+    l[(i % 4) / 2] += s[i];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
+// one block per (b, h, 64-query tile); streams the key tiles
+__global__ void __launch_bounds__(THREADS, 4)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
                  float* __restrict__ lse, int tq, int tk, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  extern __shared__ unsigned char smem_raw[];
+  SmemFwd& sm = *reinterpret_cast<SmemFwd*>(align1024(smem_raw));
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t row_stride = static_cast<size_t>(heads) * DH;
-  const bf16* qb = q + static_cast<size_t>(b) * tq * row_stride + h * DH;
-  const bf16* kb = k + static_cast<size_t>(b) * tk * row_stride + h * DH;
-  const bf16* vb = v + static_cast<size_t>(b) * tk * row_stride + h * DH;
-
-  float* s_w = sm.s[warp];
-  float* o_w = sm.o[warp];
-  bf16* p_w = sm.p[warp];
-
-  load_tile(sm.q, qb, q0, tq, row_stride);
-  for (int i = lane; i < 16 * LDS; i += 32) o_w[i] = 0.f;
+  const int q0 = blockIdx.x * BT;
+  const int n_tiles = (tk + BT - 1) / BT;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    mbar_init(&sm.res, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sm.q + warp * 16 * LDH + kk * 16, LDH);
-  }
-
-  // softmax bookkeeping: lane pair (2r, 2r+1) owns row r, columns [c0, c0+32)
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 32;
-  float m_i = -INFINITY;
-  float l_i = 0.f;
-
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile(sm.k, kb, k0, tk, row_stride);
-    load_tile(sm.v, vb, k0, tk, row_stride);
-    __syncthreads();
-
-    // S (16 x BK) = Q_w (16 x DH) . K^T; K stored [key][d] is K^T in column-major
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sm.k + n * 16 * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
+  if (threadIdx.x >= CONSUMERS) {  // producer warp: one lane issues every load
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(&sm.res, TILE_BYTES);
+      tma_load(sm.q, &q_map, &sm.res, h * DH, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NST;
+        if (j >= NST) mbar_wait(&sm.empty[s], ((j / NST) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+        tma_load(sm.k[s], &k_map, &sm.full[s], h * DH, j * BT, b);
+        tma_load(sm.v[s], &v_map, &sm.full[s], h * DH, j * BT, b);
       }
-      wmma::store_matrix_sync(s_w + n * 16, acc, LDS, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax update for row r
-    float sv[32];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int key = k0 + c0 + j;
-      const float x = key < tk ? s_w[r * LDS + c0 + j] * scale : -INFINITY;
-      sv[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_i, tmax);  // finite: every tile holds a valid key
-    const float alpha = expf(m_i - m_new); // 0 on the first tile
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_new);
-      psum += p;
-      p_w[r * LDP + c0 + j] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    __syncwarp();
-
-    // PV (16 x DH) = P_w (16 x BK) . V (BK x DH), into the score buffer
-#pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, p_w + kk * 16, LDP);
-        wmma::load_matrix_sync(vf, sm.v + kk * 16 * LDH + n * 16, LDH);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(s_w + n * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      o_w[r * LDS + c0 + j] = o_w[r * LDS + c0 + j] * alpha + s_w[r * LDS + c0 + j];
-    }
-    __syncwarp();
+    return;
   }
 
-  const int t = q0 + warp * 16 + r;
-  if (t < tq) {
-    bf16* dst = out + (static_cast<size_t>(b) * tq + t) * row_stride + h * DH + c0;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const float scale2 = scale * LOG2E;
+
+  float o[32], s[32];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pf[BT / 16][4];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) dst[j] = __float2bfloat16(o_w[r * LDS + c0 + j] / l_i);
-    if (lse != nullptr && c0 == 0) {
-      lse[(static_cast<size_t>(b) * heads + h) * tq + t] = m_i + logf(l_i);
+  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
+  const uint64_t q_desc = desc(sm.q, DESC_K_MAJOR);
+  mbar_wait(&sm.res, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % NST;
+    mbar_wait(&sm.full[st], (j / NST) & 1);
+    const uint64_t k_desc = desc(sm.k[st], DESC_K_MAJOR);
+    wg_fence();
+    fence_regs(s);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {  // S = Q . K^T
+      wgmma_ss(s, q_desc + kk * K_STEP, k_desc + kk * K_STEP, kk > 0);
     }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+
+    online_softmax(s, m, l, alpha, j * BT, tk, scale2);
+    // O's rescale, skipped by a warp whose rows all kept their max (after
+    // the first tiles, most do); alpha is 0 on the first tile
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i % 4) / 2];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) a_fragment(pf[kk], s, kk);
+
+    const uint64_t vt_desc = desc(sm.v[st], DESC_MN_MAJOR);
+    wg_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs(o, pf[kk], vt_desc + kk * MN_STEP);  // O += P.V
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    mbar_arrive(&sm.empty[st]);
   }
+
+  // epilogue: the quad's row sums, O / l, lse = m + log(l)
+  const int r0 = (tid / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+    const int t = q0 + r0 + 8 * hi;
+    if (lse != nullptr && lane % 4 == 0 && t < tq) {
+      lse[(static_cast<size_t>(b) * heads + h) * tq + t] = (m[hi] + log2f(l[hi])) / LOG2E;
+    }
+    l[hi] = 1.f / l[hi];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= l[(i % 4) / 2];
+  stage_rows(sm.out, o, tid);
+  named_sync<1, CONSUMERS>();
+  const size_t row_stride = static_cast<size_t>(heads) * DH;
+  store_rows<CONSUMERS>(out + static_cast<size_t>(b) * tq * row_stride + h * DH, sm.out, q0, tq,
+                        row_stride, tid);
 }
 
 }  // namespace
 
 // q (batch, tq, heads, head_dim), k/v (batch, tk, heads, head_dim), out like q;
-// all bf16 and contiguous; head_dim must be 64. lse: null, or f32
-// (batch, heads, tq) for the row log-sum-exp.
+// all bf16, contiguous, 16-byte aligned; head_dim must be 64. lse: null, or
+// f32 (batch, heads, tq) for the row log-sum-exp.
 WEALY_API int wealy_flash_mha_fwd(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int batch, int tq, int tk, int heads,
                                   int head_dim, float scale, void* stream) {
   if (head_dim != DH || tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // a runtime call first: it makes the device's primary context current on
+  // this thread, and the driver's tensor-map encoder needs one
+  const int smem = static_cast<int>(sizeof(SmemFwd)) + 1024;
+  cudaError_t err = set_smem(flash_fwd_kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((tq + BQ - 1) / BQ, heads, batch);
+  CUtensorMap qm, km, vm;
+  if ((err = tile_map(&qm, q, batch, tq, heads)) != cudaSuccess) return err;
+  if ((err = tile_map(&km, k, batch, tk, heads)) != cudaSuccess) return err;
+  if ((err = tile_map(&vm, v, batch, tk, heads)) != cudaSuccess) return err;
+  dim3 grid((tq + BT - 1) / BT, heads, batch);
   flash_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), tq, tk, heads, scale);
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), tq, tk, heads, scale);
   return cudaGetLastError();
 }

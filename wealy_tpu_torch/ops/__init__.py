@@ -13,14 +13,26 @@ BF16_REL_ABS = 2e-2
 # both round p and ds (the plain version dp too) to bf16 before products,
 # at other places, and ds = p * (dp - delta) cancels, so rows agree less
 BF16_GRAD_COS_MIN = 0.999
+# In a row whose softmax is nearly one-hot, dq = ds . k is a cancellation
+# (the row of ds sums to 0) that can fall far below the rounding of its
+# terms: ds rounded to bf16 before the product, as the TPU kernel rounds it,
+# leaves only rounding there, in any order of adds. Rows whose reference
+# norm is below this share of the RMS row norm are held by the max-abs bound
+# alone (chip_smoke.py phase 12 on an H100, (4, 1500, 6) with q and k scaled
+# 3.7x: 1,993 of 36,000 dq rows)
+NOISE_ROW_FLOOR = 1e-4
 
 
-def bf16_agreement(got: torch.Tensor, want: torch.Tensor,
-                   cos_min: float = BF16_COS_MIN) -> tuple[bool, float, float]:
-    """(within the bound, max |got - want|, smallest per-row cosine)."""
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor, cos_min: float = BF16_COS_MIN,
+                   row_floor: float = 0.0) -> tuple[bool, float, float]:
+    """(within the bound, max |got - want|, smallest per-row cosine over the
+    rows whose reference norm is at least ``row_floor`` of the RMS row norm)."""
     got = got.float().reshape(-1, got.shape[-1])
     want = want.float().reshape(-1, want.shape[-1])
     err = (got - want).abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1, eps=1e-30).min().item()
+    norms = want.double().norm(dim=-1)
+    kept = norms >= row_floor * norms.square().mean().sqrt()
+    cos = torch.nn.functional.cosine_similarity(got[kept], want[kept], dim=-1,
+                                                eps=1e-30).min().item()
     ok = cos >= cos_min and err <= BF16_REL_ABS * want.abs().max().item()
     return ok, err, cos

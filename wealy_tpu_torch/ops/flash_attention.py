@@ -11,9 +11,8 @@ needed; under ``torch.no_grad()`` (extraction) it runs the forward alone
 and saves nothing. Each wrapper takes the plain version for a CPU tensor
 (:func:`_reference_mha` and its autograd, :func:`_reference_mha_grads`) and
 launches its kernel for a CUDA tensor; the kernels take bf16 with head dim
-64 (every published Whisper size) and any T >= 1, K5a/K5b from 16-byte
-aligned bases (their tiles arrive by TMA), and the wrappers raise on
-anything else.
+64 (every published Whisper size) and any T >= 1, from 16-byte aligned
+bases (their tiles arrive by TMA), and the wrappers raise on anything else.
 """
 
 from __future__ import annotations
@@ -62,18 +61,18 @@ def _check(what: str, q, k, v, *more) -> None:
     ):
         raise ValueError(
             f"{what}: the kernel takes bf16 CUDA q/k/v of shape (B, T, H, 64) (and "
-            f"out/g like q); got q {tuple(q.shape)} {q.dtype} {q.device}, k "
+            f"g like q); got q {tuple(q.shape)} {q.dtype} {q.device}, k "
             f"{tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype}"
             + "".join(f", {tuple(t.shape)} {t.dtype} {t.device}" for t in more)
         )
 
 
 def _check_aligned(what: str, *tensors) -> None:
-    """K5a/K5b load tiles through TMA and rows as 16-byte vectors: every
-    base must lie on a 16-byte boundary (a fresh allocation does; a view at
-    an offset may not)."""
+    """K2, K5a and K5b load tiles through TMA and write rows as 16-byte
+    vectors: every base must lie on a 16-byte boundary (a fresh allocation
+    does; a view at an offset may not)."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: the kernel needs 16-byte aligned q/k/v/out/g (TMA); got "
+        raise ValueError(f"{what}: the kernel needs 16-byte aligned q/k/v/g (TMA); got "
                          f"base addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
 
 
@@ -82,6 +81,7 @@ def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     _check("flash_mha", q, k, v)
     B, Tq, H, Dh = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned("flash_mha", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if with_lse else None
     _build.check(
@@ -96,19 +96,19 @@ def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def _launch_dq(q, k, v, out, g, lse, scale: float):
+def _launch_dq(q, k, v, g, lse, scale: float):
     """K5a: (dq, delta f32 (B, H, Tq))."""
-    _check("flash_mha_bwd_dq", q, k, v, out, g)
+    _check("flash_mha_bwd_dq", q, k, v, g)
     B, Tq, H, Dh = q.shape
-    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
-    _check_aligned("flash_mha_bwd_dq", q, k, v, out, g)
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    _check_aligned("flash_mha_bwd_dq", q, k, v, g)
     lse = lse.float().contiguous()
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _build.check(
         _build.library().wealy_flash_mha_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(),
             B, Tq, k.shape[1], H, Dh, float(scale), _build.stream(q.device),
         ),
         "flash_mha_bwd_dq",
@@ -146,12 +146,21 @@ def flash_mha_fwd(q, k, v, scale: float, with_lse: bool = False):
     return _launch_fwd(q, k, v, scale, with_lse)
 
 
-def flash_mha_bwd_dq(q, k, v, out, g, lse, scale: float):
-    """K5a: (dq, delta), delta = rowsum(g * out) in f32 (B, H, Tq)."""
+def _reference_delta(q, k, v, g, scale: float):
+    """rowsum(p * dp) in f32 (B, H, Tq), as the TPU kernels sum it: p the
+    f32 softmax of the scaled scores, dp = g . v^T in f32."""
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    return (p * dp).sum(-1)
+
+
+def flash_mha_bwd_dq(q, k, v, g, lse, scale: float):
+    """K5a: (dq, delta), delta = rowsum(p * dp) in f32 (B, H, Tq) over every
+    key (K5a does not read the forward's output)."""
     if not _kernel_route(q):
-        delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = _reference_delta(q, k, v, g, scale)
         return _reference_mha_grads(q, k, v, g, scale, wrt=(0,))[0], delta
-    return _launch_dq(q, k, v, out, g, lse, scale)
+    return _launch_dq(q, k, v, g, lse, scale)
 
 
 def flash_mha_bwd_dkv(q, k, v, g, lse, delta, scale: float):
@@ -167,14 +176,14 @@ class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
         out, lse = flash_mha_fwd(q, k, v, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, delta = flash_mha_bwd_dq(q, k, v, out, g, lse, ctx.scale)
+        q, k, v, lse = ctx.saved_tensors
+        dq, delta = flash_mha_bwd_dq(q, k, v, g, lse, ctx.scale)
         dk, dv = flash_mha_bwd_dkv(q, k, v, g, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
