@@ -41,8 +41,12 @@ same function, in turns (chip_smoke.py's ``turns_ms``: library, kernel,
 kernel, library, five times over, medians, launches queued behind a device
 sleep): K1 against a ``torch.stft`` log-mel at B=8 and B=64 (80 mels), K2
 against SDPA's forward at (4, 1500, 6, 64), (8, 1500, 20, 64) and (64, 1500,
-6, 64), and K5a + K5b against SDPA's backward (dq, dk and dv together) at
-(4, 1500, 6, 64) and (8, 1500, 20, 64), with ``wealy_tpu_torch`` imported
+6, 64), K5a + K5b against SDPA's backward (dq, dk and dv together) at
+(4, 1500, 6, 64) and (8, 1500, 20, 64), K3 against the bf16 cuBLAS chain
+(``F.linear`` -> ``F.gelu`` -> ``F.linear``) at N=6000 with D=384 and 1280,
+and K4 alone at (222, 222, 18, 18), (1, 512, 18, 18), (16, 512, 18, 18),
+(222, 222, 12, 12), (16, 512, 40, 18) and (64, 64, 40, 40), with
+``wealy_tpu_torch`` imported
 from DIR (default: this checkout), so that two checkouts can be compared
 within one call on one card by their ratios to the library calls. It
 prints one JSON line. Refuses to run without CUDA.
@@ -101,8 +105,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="profile_out", help="directory for the tables")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K1, K2 and K5a + K5b against their library calls in turns, "
-                         "and nothing else")
+                    help="time K1, K2, K3, K4 and K5a + K5b (against their library calls, "
+                         "where there is one) in turns, and nothing else")
     ap.add_argument("--package-root", default=None,
                     help="checkout whose wealy_tpu_torch --kernels times")
     ap.add_argument("--only", default="tiny,turbo,evaluate,ranking,finetune,serving",
@@ -213,7 +217,9 @@ def time_kernels(package_root) -> int:
         sys.path.insert(0, os.path.abspath(package_root))
     from wealy_tpu_torch.audio import fused_mel
     from wealy_tpu_torch.audio import mel as tmel
+    from wealy_tpu_torch.ops import bpwr_redux as br
     from wealy_tpu_torch.ops import flash_attention as fa
+    from wealy_tpu_torch.ops import fused_mlp as fm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -276,6 +282,32 @@ def time_kernels(package_root) -> int:
                      "k5b_ms": med["dkv"], "ms": pair, "library": "SDPA backward",
                      "library_ms": med["library"], "ratio": pair / med["library"],
                      "floor_ms": attention_backward_bounds(B, T, H)["floor"][0]})
+    # K3 against the bf16 cuBLAS chain at the narrowest and widest Whisper width
+    for N, D in ((6000, 384), (6000, 1280)):
+        w1 = (torch.randn(4 * D, D, device=dev, generator=gen) * D**-0.5).bfloat16()
+        w2 = (torch.randn(D, 4 * D, device=dev, generator=gen) * (4 * D) ** -0.5).bfloat16()
+        b1 = torch.randn(4 * D, device=dev, generator=gen) * 0.1
+        b2 = torch.randn(D, device=dev, generator=gen) * 0.1
+        x = torch.randn(N, D, device=dev, generator=gen).bfloat16()
+        b1h, b2h = b1.bfloat16(), b2.bfloat16()
+        med = turns_ms({"kernel": lambda: fm.fused_mlp(x, w1, b1, w2, b2),
+                        "library": lambda: F.linear(F.gelu(F.linear(x, w1, b1h)), w2, b2h)},
+                       order, 5, iters)
+        rows.append({"kernel": "K3", "shape": [N, D], "ms": med["kernel"],
+                     "library": "bf16 cuBLAS chain", "library_ms": med["library"],
+                     "ratio": med["kernel"] / med["library"]})
+    # K4 (no library call) on the rank passes' view of a (Q*s1, B*s2)
+    # distance matrix: the evaluate block and the serving blocks at smax 18,
+    # songs of at most 12 chunks (two pairs a warp), a 40-chunk query
+    # against the serving block, and an evaluate block of 40-chunk songs
+    for Q, B, s1, s2 in ((222, 222, 18, 18), (1, 512, 18, 18), (16, 512, 18, 18),
+                         (222, 222, 12, 12), (16, 512, 40, 18), (64, 64, 40, 40)):
+        flat = torch.rand(Q * s1, B * s2, device=dev, generator=gen) * 2
+        d = flat.reshape(Q, s1, B, s2).permute(0, 2, 1, 3)
+        qv = torch.rand(Q, s1, device=dev, generator=gen) > 0.2
+        cv = torch.rand(B, s2, device=dev, generator=gen) > 0.2
+        med = turns_ms({"kernel": lambda: br.bpwr_block_redux(d, qv, cv)}, ("kernel",), 5, iters)
+        rows.append({"kernel": "K4", "shape": [Q, B, s1, s2], "ms": med["kernel"]})
     print(json.dumps({"package": os.path.abspath(fa.__file__), "card": smi, "rows": rows}),
           flush=True)
     return 0

@@ -5,7 +5,10 @@
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
 its plain PyTorch version at the shapes its path gives it (K2's row
-log-sum-exp against logsumexp of the f32 scores, phase 4; the attention
+log-sum-exp against logsumexp of the f32 scores, phase 4; K3 at the
+narrowest and widest Whisper width, timed with the bf16 cuBLAS chain,
+phase 5; K4 bit-equal on every route, at the evaluate block, the serving
+blocks and tiles beyond 128 chunks, phase 9; the attention
 backward K5a/K5b against autograd of the plain attention, and on rows whose
 softmax is nearly one-hot against f32 autograd, phase 12), drives
 extract_song at whisper-tiny (card against CPU) and at large-v3-turbo full
@@ -167,15 +170,20 @@ def log_mel_bound(audio, out, melw) -> tuple[float, str]:
     return bound(audio.numel() * 4 + nnz * 4 + out.numel() * 4, frames * per_frame, "f32")
 
 
-def bpwr_bound(d, qvalid, cvalid) -> tuple[float, str]:
+def bpwr_bound(d, qvalid, cvalid) -> tuple[float, str, float]:
     """K4's bound on this data: one read of the (Q, B, s1, s2) f32 tile and
     the masks, one write of the (Q, B) result; per pair, one knockout round
     for each row and column pair it removes (min of the valid rows and
-    columns, without ties), each round two compare passes over the tile."""
+    columns, without ties), each round two compare passes over the tile.
+    The third value is the compare-count floor alone (ms): every round's
+    one pass of compares over the valid tile, at the f32 rate."""
     Q, B, s1, s2 = d.shape
-    rounds = torch.minimum(qvalid.sum(1)[:, None], cvalid.sum(1)[None, :]).double().sum().item()
-    return bound(d.numel() * 4 + qvalid.numel() + cvalid.numel() + Q * B * 4,
-                 rounds * 2 * s1 * s2, "f32")
+    nq, nc = qvalid.sum(1).double(), cvalid.sum(1).double()
+    rounds = torch.minimum(nq[:, None], nc[None, :]).sum().item()
+    t, basis = bound(d.numel() * 4 + qvalid.numel() + cvalid.numel() + Q * B * 4,
+                     rounds * 2 * s1 * s2, "f32")
+    compares = (torch.minimum(nq[:, None], nc[None, :]) * nq[:, None] * nc[None, :]).sum().item()
+    return t, basis, compares / PEAK_OPS_PER_S["f32"] * 1e3
 
 
 def main() -> int:
@@ -204,7 +212,11 @@ def main() -> int:
         flash_mha_fwd,
     )
     from wealy_tpu_torch.ops.fused_mlp import _reference_mlp, fused_mlp
-    from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block, bpwr_block_redux
+    from wealy_tpu_torch.ops.bpwr_redux import (
+        _reference_bpwr_block,
+        bpwr_block_redux,
+        kernel_route,
+    )
     from wealy_tpu_torch.ops import layer_norm as tln
 
     # plain versions and decode logits are f32 products: no TF32
@@ -330,26 +342,38 @@ def main() -> int:
     del q, k, v, qt, kt, vt, got, lse
     torch.cuda.empty_cache()
 
-    # 5. K3 MLP against _reference_mlp (bf16 operands, f32 biases)
+    # 5. K3 MLP against _reference_mlp (bf16 operands, f32 biases) at the
+    # narrowest and the widest Whisper width; timed in turns (plain, kernel,
+    # library, kernel, plain) with the bf16 cuBLAS chain F.linear -> F.gelu
+    # -> F.linear as the library call; the headline N=6000, D=384 first
     for D in (384, 1280):
         w1 = (torch.randn(4 * D, D, device=dev, generator=gen) * D**-0.5).bfloat16()
         w2 = (torch.randn(D, 4 * D, device=dev, generator=gen) * (4 * D) ** -0.5).bfloat16()
         b1 = torch.randn(4 * D, device=dev, generator=gen) * 0.1
         b2 = torch.randn(D, device=dev, generator=gen) * 0.1
+        b1h, b2h = b1.bfloat16(), b2.bfloat16()
         for N in (4 * 1500, 4507):
             x = torch.randn(N, D, device=dev, generator=gen).bfloat16()
             got, want = fused_mlp(x, w1, b1, w2, b2), _reference_mlp(x, w1, b1, w2, b2)
             ok, err, cos = bf16_agreement(got, want)
             check(ok, f"K3 D={D} N={N}: cos {cos:.6f} max abs {err:.3g}")
-            ms = cuda_ms(lambda: fused_mlp(x, w1, b1, w2, b2), 10)
-            plain = cuda_ms(lambda: _reference_mlp(x, w1, b1, w2, b2), 10)
-            bnd = bound(2 * N * D * 2 + 2 * 4 * D * D * 2 + 5 * D * 4, 2 * 2 * N * D * 4 * D,
-                        "bf16")
+            med = turns_ms({"kernel": lambda: fused_mlp(x, w1, b1, w2, b2),
+                            "plain": lambda: _reference_mlp(x, w1, b1, w2, b2),
+                            "library": lambda: F.linear(F.gelu(F.linear(x, w1, b1h)), w2, b2h)},
+                           ("plain", "kernel", "library", "kernel", "plain"), 3,
+                           {"kernel": 20, "plain": 5, "library": 20})
+            flops = 2 * 2 * N * D * 4 * D
+            bnd = bound(2 * N * D * 2 + 2 * 4 * D * D * 2 + 5 * D * 4, flops, "bf16")
             say(f"[5 K3 fused_mlp] N={N} D={D}: max_abs_err {err:.3g} min_cos {cos:.6f} "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain:.3f} ms"
-                + fmt_bound(bnd, None))
+                f"{'ok' if ok else 'FAIL'}; medians of 3 rounds of turns: kernel "
+                f"{med['kernel']:.4f} ms ({flops / med['kernel'] / 1e9:.1f} TFLOP/s), plain "
+                f"{med['plain']:.3f} ms" + fmt_bound(bnd, med["library"], "bf16 cuBLAS chain")
+                + f" (ratio {med['kernel'] / med['library']:.3f})")
             record("fused_mlp", "wealy_tpu_torch/csrc/fused_mlp.cu",
-                   "wealy_tpu/ops/fused_mlp.py:44", err, ms, plain, f"N={N} D={D}", bnd)
+                   "wealy_tpu/ops/fused_mlp.py:44", err, med["kernel"], med["plain"],
+                   f"N={N} D={D}", bnd, med["library"])
+    del x, w1, w2, b1, b2, b1h, b2h, got, want
+
     # 9. K4 bpwr against its plain version (bit-equal by design; bound 1e-6)
     def bpwr_case(shape, view=False, p_invalid=0.2, ties=False):
         Q, B, s1, s2 = shape
@@ -364,40 +388,58 @@ def main() -> int:
         cv = torch.rand(B, s2, device=dev, generator=gen) > p_invalid
         qv[:, 0] = True
         cv[:, 0] = True
-        qv[0] = False  # a query with no valid chunk: its pairs are fully excluded
+        if Q > 1:  # a query with no valid chunk: its pairs are fully excluded
+            qv[0] = False
         cv[-1] = False
         return d, qv, cv
 
+    # the headline first (record() keeps it); the serving blocks (Q=1 and
+    # Q=16 against 512 songs, and 16 queries of 40 chunks, longer than the
+    # index's songs) timed too, in turns with the plain version; tiles
+    # beyond 32 chunks take the block route, the last (410 KB of f32)
+    # beyond the opt-in shared memory
+    timed = ("headline", "serving Q=1", "serving Q=16", "long queries")
     for label, shape, kw in (
         ("headline", (222, 222, 18, 18), dict(view=True)),
+        ("serving Q=1", (1, 512, 18, 18), dict(view=True)),
+        ("serving Q=16", (16, 512, 18, 18), dict(view=True)),
+        ("long queries", (16, 512, 40, 18), dict(view=True)),
+        ("two pairs a warp", (64, 64, 12, 16), {}),
         ("s1>s2", (64, 96, 24, 10), {}),
         ("s=1", (512, 512, 1, 1), {}),
         ("40x40", (32, 48, 40, 40), {}),
-        ("largest", (4, 8, 128, 128), {}),
+        ("128", (4, 8, 128, 128), {}),
+        ("150x300", (2, 3, 150, 300), {}),
+        ("320x320", (2, 2, 320, 320), {}),
         ("masked rows", (16, 32, 12, 12), dict(p_invalid=0.5)),
         ("exact ties", (8, 8, 6, 6), dict(ties=True)),
     ):
         d, qv, cv = bpwr_case(shape, **kw)
+        Q = shape[0]
         got = bpwr_block_redux(d, qv, cv)
         again = bpwr_block_redux(d, qv, cv)
         want = _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12)
         err = (got - want).abs().max().item()
         same = torch.equal(got, again)
-        zero_rows = bool((got[0] == 0).all()) and bool((got[:, -1] == 0).all())
-        ok = check(err <= 1e-6 and same and zero_rows and bool(torch.isfinite(got).all()),
+        zero_rows = (Q == 1 or bool((got[0] == 0).all())) and bool((got[:, -1] == 0).all())
+        ok = check(torch.equal(got, want) and same and zero_rows and bool(torch.isfinite(got).all()),
                    f"K4 {label} {shape}: max abs {err:.3g}, repeat bit-equal {same}, "
                    f"excluded pairs zero {zero_rows}")
-        ms = plain = None  # timed at the headline shape, which record() keeps
+        ms = plain = None
         bnd = bpwr_bound(d, qv, cv)
-        if label == "headline":
-            ms = cuda_ms(lambda: bpwr_block_redux(d, qv, cv), 20)
-            plain = cuda_ms(lambda: _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12), 5)
-        say(f"[9 K4 bpwr_redux] {label} Q,B,s1,s2={shape}: max_abs_err {err:.3g}, bit-equal "
-            f"{bool(err == 0)}, repeat bit-equal {same} {'ok' if ok else 'FAIL'}"
-            + (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms" + fmt_bound(bnd, None)
+        if label in timed:
+            med = turns_ms({"kernel": lambda: bpwr_block_redux(d, qv, cv),
+                            "plain": lambda: _reference_bpwr_block(d, qv, cv, "bpwr", 1e-7, 1e12)},
+                           ("plain", "kernel", "kernel", "plain"), 3, {"kernel": 20, "plain": 3})
+            ms, plain = med["kernel"], med["plain"]
+        say(f"[9 K4 bpwr_redux] {label} Q,B,s1,s2={shape} ({kernel_route(*shape[2:])} route): "
+            f"max_abs_err {err:.3g}, bit-equal {torch.equal(got, want)}, repeat bit-equal {same} "
+            f"{'ok' if ok else 'FAIL'}"
+            + (f"; medians of 3 rounds of turns: kernel {ms:.4f} ms, plain {plain:.3f} ms"
+               + fmt_bound(bnd, None) + f", compare-count floor {bnd[2]:.4f} ms"
                if ms is not None else ""))
         record("bpwr_redux", "wealy_tpu_torch/csrc/bpwr_redux.cu",
-               "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}", bnd)
+               "wealy_tpu/ops/pallas_redux.py:67", err, ms, plain, f"Q,B,s1,s2={shape}", bnd[:2])
     del d, qv, cv
 
     # 12. K5a/K5b against autograd of _reference_mha (bf16): dQ, dK, dV

@@ -6,16 +6,18 @@ unequal query and key lengths, the edges of the K/V tile ring, a ragged
 tile inside a batch and 20 heads, with the row log-sum-exp and a
 misaligned view that it refuses (K2, and the backward K5a/K5b with repeat
 calls bit-equal, scores of +-60, rows whose softmax is nearly one-hot and
-a misaligned view), one row and rows that fill no tile
-(K3), tiles of one row or the widest side and bpwr-n rounds (K4, bit-equal
-to its plain version), the launch counters, the shapes the kernels refuse,
-the encoder's routing through K2 and K3, the gradient of a two-block
-bf16 encoder through K2/K5a/K5b/K3 against its plain path, K6 at the
-shapes chip_smoke.py holds it at plus a width off the 16-byte access and a
-misaligned row, and the serving engine's resident corpus (f16 and int8)
-against its host path on the card. All use the tolerances defined beside
-the kernels. Marked ``cuda``; each skips without
-a card.
+a misaligned view), row counts around the 128-row tile at every Whisper
+width and the gradient through K3 alone at tiny and turbo width (K3),
+tiles of one row, two pairs a warp, the serving blocks, tiles beyond 128
+chunks up to one larger than shared memory, and bpwr-n rounds on each
+route (K4, bit-equal to its plain version and to a repeat), the launch
+counters, the shapes the kernels refuse, the encoder's routing through K2
+and K3, the gradient of a two-block bf16 encoder through K2/K5a/K5b/K3
+against its plain path, K6 at the shapes chip_smoke.py holds it at plus a
+width off the 16-byte access and a misaligned row, and the serving
+engine's resident corpus (f16 and int8) against its host path on the card.
+All use the tolerances defined beside the kernels. Marked ``cuda``; each
+skips without a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -35,7 +37,12 @@ from wealy_tpu_torch.eval.retrieval import song_distance_matrix
 from wealy_tpu_torch.ops import BF16_COS_MIN, BF16_GRAD_COS_MIN, NOISE_ROW_FLOOR, bf16_agreement
 from wealy_tpu_torch.ops import flash_attention as fa
 from wealy_tpu_torch.ops import fused_mlp as fm
-from wealy_tpu_torch.ops.bpwr_redux import MAX_SIDE, _reference_bpwr_block, bpwr_block_redux
+from wealy_tpu_torch.ops.bpwr_redux import (
+    ROUTES,
+    _reference_bpwr_block,
+    bpwr_block_redux,
+    kernel_route,
+)
 from wealy_tpu_torch.parallel.similarity import streaming_relevant_ranks
 from wealy_tpu_torch.ops.flash_attention import (
     _reference_mha,
@@ -277,7 +284,10 @@ def test_two_block_encoder_gradient_against_plain_path(dev, monkeypatch):
         assert cos >= 0.99, (name, cos)
 
 
-@pytest.mark.parametrize("N,D", [(1, 64), (65, 384)])
+# every published Whisper width, and 64: the second product then fills half
+# of a 128-column tile
+@pytest.mark.parametrize("D", [64, 384, 512, 768, 1024, 1280])
+@pytest.mark.parametrize("N", [1, 63, 127, 129, 4507, 6000])  # around the 128-row tile
 def test_mlp_kernel_edges(dev, N, D):
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(N, D, device=dev, generator=g).bfloat16()
@@ -289,6 +299,44 @@ def test_mlp_kernel_edges(dev, N, D):
     got = fused_mlp(x, w1, b1, w2, b2)
     assert fused_mlp.launches == before + 1
     _assert_bf16_close(got, _reference_mlp(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("size", ["tiny", "large-v3-turbo"])
+def test_two_block_encoder_gradient_mlp_kernel_alone(dev, monkeypatch, size):
+    """The fine-tune gradient of test_two_block_encoder_gradient_against_plain_path
+    with attention on its plain version on both sides, so that K3 is the one
+    difference: every parameter's gradient through K3 against the plain MLP
+    (cosine >= 0.99), at whisper-tiny and large-v3-turbo width."""
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wealy_tpu_torch.models.whisper.model import WhisperEncoder
+
+    cfg = WHISPER_CONFIGS[size]
+    enc = WhisperEncoder(cfg, dtype=torch.bfloat16, device=dev)
+    enc.blocks = enc.blocks[:2]
+    g = torch.Generator(device=dev).manual_seed(9)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if p.dim() > 1 and name != "positional_embedding":
+                p.copy_(torch.randn(p.shape, device=dev, generator=g) * p[0].numel() ** -0.5)
+    mel = torch.randn(2, cfg.n_mels, 3000, device=dev, generator=g) * 0.5
+    readout = torch.randn(2, 1500, cfg.n_audio_state, device=dev, generator=g)
+    monkeypatch.setattr(fa, "_kernel_route", lambda t: False)
+
+    def grads():
+        enc.zero_grad()
+        (enc(mel).float() * readout).mean().backward()
+        return {n: p.grad.float().clone() for n, p in enc.named_parameters()}
+
+    before = fused_mlp.launches
+    got = grads()
+    assert fused_mlp.launches == before + 2
+    monkeypatch.setattr(fm, "_kernel_route", lambda t: False)
+    want = grads()
+    assert fused_mlp.launches == before + 2
+    for name in want:
+        cos = torch.nn.functional.cosine_similarity(got[name].flatten(), want[name].flatten(),
+                                                    dim=0).item()
+        assert cos >= 0.99, (name, cos)
 
 
 def test_kernels_raise_on_shapes_they_do_not_take(dev):
@@ -322,22 +370,46 @@ def test_tiny_encoder_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("Q,B,s1,s2,redux", [
-    (1, 1, 1, 1, "bpwr"), (3, 5, 1, MAX_SIDE, "bpwr"), (4, 2, MAX_SIDE, 3, "bpwr"),
+    (1, 1, 1, 1, "bpwr"), (3, 5, 1, 128, "bpwr"), (4, 2, 128, 3, "bpwr"),
     (2, 3, 7, 9, "bpwr-1"), (2, 3, 9, 7, "bpwr-50"), (1, 40, 33, 33, "bpwr"),
+    # two pairs a warp (rows <= 16), the serving blocks, and a query longer
+    # than the index's songs (the block route at 18 rows)
+    (4, 8, 12, 16, "bpwr"), (1, 512, 18, 18, "bpwr"), (16, 512, 18, 18, "bpwr"),
+    (16, 512, 40, 18, "bpwr"),
+    # tiles beyond 128 chunks: the block route, the last (410 KB of f32)
+    # beyond the opt-in shared memory
+    (1, 3, 150, 300, "bpwr"), (2, 2, 300, 40, "bpwr"), (1, 2, 320, 320, "bpwr"),
+    # bpwr-n on each route
+    (3, 4, 20, 100, "bpwr-5"), (2, 2, 300, 40, "bpwr-9"), (1, 2, 320, 320, "bpwr-3"),
 ])
 def test_bpwr_kernel_edges(dev, Q, B, s1, s2, redux):
-    """K4 against its plain version, bit for bit, with masked chunks."""
+    """K4 against its plain version and against a repeat, bit for bit, with
+    masked chunks, a fully excluded query and candidate, and ties."""
     g = torch.Generator(device=dev).manual_seed(4)
     d = torch.rand(Q, B, s1, s2, device=dev, generator=g) * 2
+    d[:, :, ::3, ::2] = torch.round(d[:, :, ::3, ::2] * 4) / 4  # exact ties
     qv = torch.rand(Q, s1, device=dev, generator=g) > 0.3
     cv = torch.rand(B, s2, device=dev, generator=g) > 0.3
     qv[:, 0] = True
+    if Q * B > 1:
+        cv[-1] = False  # a candidate with no valid chunk
     before = bpwr_block_redux.launches
     got = bpwr_block_redux(d, qv, cv, redux)
+    again = bpwr_block_redux(d, qv, cv, redux)
     want = _reference_bpwr_block(d, qv, cv, redux, 1e-7, 1e12)
     torch.cuda.synchronize()
-    assert bpwr_block_redux.launches == before + 1
+    assert bpwr_block_redux.launches == before + 2
     assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    if Q * B > 1:
+        assert bool((got[:, -1] == 0).all())
+
+
+def test_bpwr_kernel_routes(dev):
+    """The shapes above reach every route of K4."""
+    assert [kernel_route(s1, s2) for s1, s2 in ((18, 18), (12, 16), (20, 100), (300, 40),
+                                                 (320, 320))] == [
+        ROUTES[0], ROUTES[0], ROUTES[1], ROUTES[1], ROUTES[2]]
 
 
 def test_bpwr_kernel_reads_the_distance_view(dev):
@@ -355,12 +427,14 @@ def test_bpwr_kernel_reads_the_distance_view(dev):
 
 
 def test_bpwr_kernel_refuses(dev):
-    valid = torch.ones(1, MAX_SIDE + 1, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="bpwr_block_redux"):
-        bpwr_block_redux(torch.zeros(1, 1, MAX_SIDE + 1, MAX_SIDE + 1, device=dev), valid, valid)
+    before = bpwr_block_redux.launches
+    valid = torch.ones(1, 3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bpwr_block_redux"):  # masks of the wrong length
+        bpwr_block_redux(torch.zeros(1, 1, 2, 2, device=dev), valid, valid)
     v2 = torch.ones(1, 2, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="bpwr_block_redux"):
         bpwr_block_redux(torch.zeros(1, 1, 2, 2, dtype=torch.float64, device=dev), v2, v2)
+    assert bpwr_block_redux.launches == before
 
 
 def test_song_distances_card_against_cpu(dev):

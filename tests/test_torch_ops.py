@@ -58,10 +58,11 @@ def _mlp_inputs(rng, N, D):
     return x, w1, b1, w2, b2
 
 
+@pytest.mark.parametrize("D", [64, 384])
 @pytest.mark.parametrize("N", [1, 517])
-def test_fused_mlp_matches_jax(N):
+def test_fused_mlp_matches_jax(N, D):
     rng = np.random.default_rng(2)
-    x, w1, b1, w2, b2 = _mlp_inputs(rng, N, 64)
+    x, w1, b1, w2, b2 = _mlp_inputs(rng, N, D)
     bf = jnp.bfloat16
     want = np.asarray(
         jfused_mlp(jnp.asarray(x, bf), jnp.asarray(w1, bf), jnp.asarray(b1),
@@ -72,7 +73,7 @@ def test_fused_mlp_matches_jax(N):
     got = to_numpy(
         fused_mlp(t(x).bfloat16(), t(w1.T).bfloat16(), t(b1), t(w2.T).bfloat16(), t(b2))
     )
-    assert got.shape == want.shape == (N, 64)
+    assert got.shape == want.shape == (N, D)
     assert min_row_cosine(got, want) >= COS_MIN
     assert np.abs(got - want).max() <= REL_ABS * np.abs(want).max()
 

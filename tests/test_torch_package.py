@@ -119,13 +119,13 @@ def _shared_arrays(code: str, n_structs: int) -> set:
 
 def test_hopper_header_holds_the_building_blocks():
     """The mbarrier, TMA, descriptor and wgmma wrappers and the tensor-map
-    encoding live once, in csrc/hopper.cuh, for K2 and K5a/K5b."""
+    encoding live once, in csrc/hopper.cuh, for K2, K5a/K5b and K3."""
     code = _code("hopper.cuh")
     assert "wgmma.mma_async" in code and "wgmma.wait_group" in code
     assert "cp.async.bulk.tensor" in code
     assert "mbarrier.try_wait" in code and "mbarrier.arrive.expect_tx" in code
     assert "cuTensorMapEncodeTiled" in code and "__trap()" in code
-    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu", "fused_mlp.cu"):
         kernel = _code(name)
         assert '#include "hopper.cuh"' in kernel, name
         assert "asm volatile" not in kernel and "EncodeTiled" not in kernel, name
@@ -167,6 +167,40 @@ def test_attention_forward_is_the_hopper_design():
     arrays = _shared_arrays(code, 1)
     assert not {a for t, a in arrays if t.startswith("float")}
     assert all(a.endswith("[TILE]") or a.endswith("[BT * LDO]") for t, a in arrays)
+
+
+def test_mlp_is_the_hopper_design():
+    """K3: both GEMMs on m64n128k16 wgmma with both operands in shared memory,
+    fed by a TMA ring of at least three stages from 2-D tensor maps (cached on
+    the host) by a producer warp, two consumer warpgroups, no WMMA."""
+    code = _code("fused_mlp.cu")
+    for call in ("wgmma_ss128(", "tma_load_2d(", "mbar_wait(", "mbar_expect_tx(", "mbar_arrive(",
+                 "cached_map(", "erff("):
+        assert call in code, call
+    assert min(int(n) for n in re.findall(r"NST = GELU \? (\d+) : (\d+);", code)[0]) >= 3
+    assert "constexpr int CONSUMERS = 2 * WG;" in code
+    assert not re.search(r"\bwmma::|nvcuda|<mma\.h>|mma\.sync", code)
+    assert "m64n128k16" in _code("hopper.cuh") and "tensor.2d" in _code("hopper.cuh")
+
+
+def test_bpwr_takes_every_tile_size():
+    """K4: no side limit in the C entry or the wrapper; the sorted route
+    keeps rows as lanes with bitmask column liveness ORed across the lanes
+    and sorts each row once, the block route reads the tile from device
+    memory where it does not fit in shared memory, and one function picks
+    the route for the launch and for ``kernel_route``."""
+    code = _code("bpwr_redux.cu")
+    entry = code[code.index("WEALY_API int wealy_bpwr_redux("):]
+    assert "kMaxSide" not in code and "> 128" not in entry
+    for needle in ("__reduce_or_sync(", "__reduce_min_sync(", "sort_row<CMAX>(", "in_smem ?",
+                   "cudaDevAttrMaxSharedMemoryPerBlockOptin", "bpwr_sorted_kernel<L, CMAX>",
+                   "bpwr_block_kernel<<<"):
+        assert needle in code, needle
+    assert code.count("cudaDevAttrMaxSharedMemoryPerBlockOptin") == 1
+    assert entry.count("pick_route(") == 2  # the launch and wealy_bpwr_route
+    assert "atomic" not in code  # a fixed order of adds: bit-equal and repeatable
+    wrapper = (PKG / "ops" / "bpwr_redux.py").read_text()
+    assert "MAX_SIDE" not in wrapper
 
 
 def test_log_mel_is_the_fft_route():
@@ -240,7 +274,8 @@ def test_build_flags_and_source_hash():
             "bpwr_redux.cu", "layer_norm.cu", "common.cuh", "hopper.cuh"} <= names
     assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd",
                                       "wealy_flash_mha_bwd_dq", "wealy_flash_mha_bwd_dkv",
-                                      "wealy_fused_mlp", "wealy_bpwr_redux", "wealy_layer_norm"}
+                                      "wealy_fused_mlp", "wealy_bpwr_redux", "wealy_bpwr_route",
+                                      "wealy_layer_norm"}
     assert "-shared" not in _build.NVCC_FLAGS  # one object per source, linked after
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()

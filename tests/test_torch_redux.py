@@ -15,7 +15,7 @@ from wealy_tpu.ops.pallas_redux import bpwr_block_redux as jax_bpwr_block_redux
 from wealy_tpu.ops.redux import distance_tensor_redux as jax_redux
 from wealy_tpu_torch.ops import distance as tdist
 from wealy_tpu_torch.ops import masked as tmasked
-from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
+from wealy_tpu_torch.ops.bpwr_redux import _reference_bpwr_block, bpwr_block_redux
 from wealy_tpu_torch.ops.redux import distance_tensor_redux, ordered_selected_mean
 
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -213,7 +213,7 @@ def test_bpwr_block_lane_padding_shape():
 
 def test_bpwr_block_70x70_tile():
     """The tile the JAX kernel leaves to XLA (above its VMEM budget); the
-    port's kernel takes it (both sides <= MAX_SIDE)."""
+    port's kernel takes it (its block route)."""
     rng = np.random.default_rng(3)
     got, want = _both(*_rand_case(rng, 2, 2, 70, 70))
     np.testing.assert_allclose(got, want, **TOL)
@@ -237,3 +237,76 @@ def test_bpwr_block_rejects_other_modes():
     with pytest.raises(ValueError, match="bpwr"):
         bpwr_block_redux(torch.zeros(1, 1, 2, 2), torch.ones(1, 2, dtype=torch.bool),
                          torch.ones(1, 2, dtype=torch.bool), "smean")
+
+
+# --- K4's sorted-route knockout, modelled in plain torch --------------------
+
+
+def _lane_model(d, qv, cv, redux, eps=1e-7, inf=1e12):
+    """K4's sorted route as plain torch: rows (the smaller side) are lanes,
+    column liveness is one bitmask per pair and row liveness one flag per
+    lane; each round every lane takes its row's live minimum, the minimum
+    across the lanes gives mn, each lane sets the bits of its live entries
+    <= mn, the OR of the lanes' bits knocks the columns out, and a lane with
+    a bit knocks its own row out. A lane selects in at most one round, so its
+    selection is one mask, and the mean adds in the kernel's order."""
+    Q, B, s1, s2 = d.shape
+    n_req = s1 if "-" not in redux else int(redux.split("-")[-1])
+    swap = s2 < s1
+    rows = d.transpose(2, 3) if swap else d  # (Q, B, R, C)
+    R, C = rows.shape[2:]
+    if swap:
+        rlive, cmask = cv[None].expand(Q, B, R).clone(), qv[:, None].expand(Q, B, C)
+    else:
+        rlive, cmask = qv[:, None].expand(Q, B, R).clone(), cv[None].expand(Q, B, C)
+    bit = 2 ** torch.arange(C, dtype=torch.int64)
+    ccol = (cmask.long() * bit).sum(-1)  # (Q, B): the live columns as bits
+    selected = torch.zeros(Q, B, R, dtype=torch.int64)  # each lane's selection mask
+    for _ in range(max(1, min(n_req, R))):
+        col_live = (ccol[..., None, None] & bit) != 0
+        vals = torch.where(rlive[..., None] & col_live, rows, torch.tensor(float("inf")))
+        m = torch.clamp(vals.amin(-1), max=inf)  # each lane's row minimum, inf when dead
+        mn = m.amin(-1, keepdim=True)  # the minimum across the lanes
+        hit = (vals <= mn[..., None]) & (mn < inf)[..., None]
+        lane_bits = (hit.long() * bit).sum(-1)  # (Q, B, R)
+        assert not bool(((lane_bits != 0) & (selected != 0)).any()), "a row selected twice"
+        dead = torch.zeros_like(ccol)
+        for r in range(R):  # the OR across the lanes
+            dead = dead | lane_bits[..., r]
+        selected = torch.where(lane_bits != 0, lane_bits, selected)
+        rlive = rlive & (lane_bits == 0)
+        ccol = ccol & ~dead
+    sel = (selected[..., None] & bit) != 0
+    return ordered_selected_mean(rows, sel, eps)[..., 0, 0]
+
+
+def _model_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "ties":
+        d, qv, cv = _rand_case(rng, 3, 4, 5, 6, mask_p=0.0)
+        d = np.round(d * 2) / 2  # values on a grid of 0.5: ties in rows and columns
+        d[0, 0] = 0.5  # a tile of one value: every entry ties in the first round
+        return d.astype(np.float32), qv, cv, "bpwr"
+    if name == "fully masked":
+        d, qv, cv = _rand_case(rng, 4, 6, 3, 5)
+        cv[4:] = False
+        qv[1] = False
+        return d, qv, cv, "bpwr"
+    if name == "s1 > s2":
+        return (*_rand_case(rng, 3, 5, 9, 4), "bpwr")
+    if name == "wide":
+        return (*_rand_case(rng, 2, 3, 12, 40), "bpwr")
+    return (*_rand_case(rng, 3, 4, 6, 7), name)  # bpwr-1, bpwr-50
+
+
+@pytest.mark.parametrize("name", ["ties", "fully masked", "bpwr-1", "bpwr-50", "s1 > s2",
+                                  "wide"])
+def test_lane_knockout_model(name):
+    """The sorted route's formulation, bit-equal to the plain ``_bpwr`` and
+    within TOL of the JAX kernel (interpret mode)."""
+    d, qv, cv, redux = _model_case(name)
+    got = _lane_model(_t(d), _t(qv), _t(cv), redux)
+    plain = _reference_bpwr_block(_t(d), _t(qv), _t(cv), redux, 1e-7, 1e12)
+    assert torch.equal(got, plain)
+    _, want = _both(d, qv, cv, redux)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

@@ -55,6 +55,8 @@ SIGNATURES = {
     # d, qvalid, cvalid, out, Q, B, s1, s2, stride_q, stride_b, stride_s1, stride_s2,
     # n_rounds, eps, inf, stream
     "wealy_bpwr_redux": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _F, _F, _P],
+    # s1, s2 -> K4's route (0 sorted, 1/2 block: tile in shared/device memory)
+    "wealy_bpwr_route": [_I, _I],
     # x, scale, bias, out, rows, D, is_bf16, eps, stream
     "wealy_layer_norm": [_P, _P, _P, _P, _L, _I, _I, _F, _P],
 }

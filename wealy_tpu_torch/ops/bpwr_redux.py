@@ -8,14 +8,19 @@ with the exclusion mask, whose bpwr branch is ``ops/redux.py::_bpwr``) for a
 CPU tensor and launches the kernel for a CUDA tensor. The kernel reads ``d``
 through its strides (the transposed view of the distance matrix needs no
 copy) and the validity masks in place, and gives the plain version's bits.
-It takes f32 tiles with both sides at most :data:`MAX_SIDE`; the wrapper
-raises on anything else, and never takes the plain path for a CUDA tensor.
+It takes f32 tiles of any size, as the JAX function scores any tile: the
+kernel picks its route by shape (:data:`ROUTES`, :func:`kernel_route`). The
+wrapper raises on anything else, and never takes the plain path for a CUDA
+tensor.
 
 What bounds it on an H100: one f32 read of each tile from device memory
-against about n * s1 * s2 compares per pair, which run from shared memory,
-so the knockout rounds, not the read, set its time. The design keeps the
-tile in shared memory for all n rounds (one warp per pair), where the plain
-version makes n round trips of the whole tensor through device memory.
+against n dependent knockout rounds per pair, so the rounds, not the read,
+set its time. Tiles of at most 32 x 32 chunks (every product shape) run
+one lane per row, column liveness as bitmasks ORed across the lanes: each
+lane sorts its row once and steps through it as columns die. Any other tile
+runs one block per pair, from shared memory where the tile fits and from
+device memory beyond. The plain version
+instead makes n round trips of the whole tensor through device memory.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from wealy_tpu_torch import _build
 from wealy_tpu_torch.ops.redux import distance_tensor_redux
 
-MAX_SIDE = 128  # kMaxSide in csrc/bpwr_redux.cu: chunks per song on either side
+# the routes of csrc/bpwr_redux.cu, in the order wealy_bpwr_route numbers them
+ROUTES = ("sorted", "block, tile in shared memory", "block, tile in device memory")
 INF = 1e12  # distance_tensor_redux's mask fill
 EPS = 1e-7
 
@@ -58,11 +64,10 @@ def bpwr_block_redux(d, qvalid, cvalid, redux: str = "bpwr", *, eps: float = EPS
         or qvalid.shape != (Q, s1)
         or cvalid.shape != (B, s2)
         or min(s1, s2) < 1
-        or max(s1, s2) > MAX_SIDE
     ):
         raise ValueError(
             "bpwr_block_redux: the kernel takes f32 CUDA d (Q, B, s1, s2) with "
-            f"1 <= s1, s2 <= {MAX_SIDE} and bool qvalid (Q, s1), cvalid (B, s2) on the "
+            "s1, s2 >= 1 and bool qvalid (Q, s1), cvalid (B, s2) on the "
             f"same device; got d {tuple(d.shape)} {d.dtype} {d.device}, qvalid "
             f"{tuple(qvalid.shape)} {qvalid.dtype} {qvalid.device}, cvalid "
             f"{tuple(cvalid.shape)} {cvalid.dtype} {cvalid.device}"
@@ -85,3 +90,10 @@ def bpwr_block_redux(d, qvalid, cvalid, redux: str = "bpwr", *, eps: float = EPS
 
 
 bpwr_block_redux.launches = 0
+
+
+def kernel_route(s1: int, s2: int) -> str:
+    """The route K4 takes for an s1 x s2 tile on the current card (one of
+    :data:`ROUTES`); the block route's two depend on the card's shared
+    memory."""
+    return ROUTES[_build.library().wealy_bpwr_route(int(s1), int(s2))]

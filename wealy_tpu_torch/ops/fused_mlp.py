@@ -9,8 +9,13 @@ and its backward is autograd of :func:`_reference_mlp` recomputed from the
 saved inputs, the JAX package's own policy (no backward kernel). Under
 ``torch.no_grad()`` it runs the forward alone. The forward takes the plain
 version :func:`_reference_mlp` for a CPU tensor and launches the kernel for
-a CUDA tensor (bf16 x/w, f32 biases, D and 4D multiples of 64), raising on
-anything else.
+a CUDA tensor (bf16 x/w, f32 biases, D and 4D multiples of 64, any row
+count), raising on anything else.
+
+What bounds it on an H100: the tensor cores (two GEMMs of N x D x 4D MACs).
+The kernel runs each GEMM on wgmma in 128 x 128 tiles fed by a TMA ring,
+with the bias and GELU in the first product's epilogue and the bf16 hidden
+state through device memory between the two (``csrc/fused_mlp.cu``).
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ def _launch_mlp(x, w1, b1, w2, b2):
         )
     shape = x.shape
     xr = x.reshape(-1, D).contiguous()
+    if xr.data_ptr() % 16:  # TMA reads 16-byte aligned bases: a view off the grid is copied
+        xr = xr.clone()
     w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
     N = xr.shape[0]
     hidden = torch.empty((N, Dff), dtype=x.dtype, device=x.device)
