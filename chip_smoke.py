@@ -26,8 +26,15 @@ plain version and LayerNormFused's gradients (phase 16), and serving: the
 engine mode (phase 17), an exact-scan engine over a 10,547-version index
 (SHS100K-TEST scale) with its latency, batched rate, rerank, int8 and the
 ranks of 16 queries against the plain redux (phase 18), the ``serve``
-daemon under 8 concurrent clients with a ``/reload`` (phase 19), and raw
-WAV queries at large-v3-turbo and whisper-tiny (phase 20). Every kernel is
+daemon under 8 concurrent clients with a ``/reload`` (phase 19), raw
+WAV queries at large-v3-turbo and whisper-tiny (phase 20), and extraction
+over a split through the CLI at large-v3-turbo (phase 21): ``extract
+--batched`` of ``x_concat`` (straight into the pack) and ``hs_last_seq``
+over 12 audio files of three WAV formats (and one mp3 where libmpg123 and
+libmp3lame exist), ``pack``, a resume that skips every version, and
+``evaluate`` on the pack, with the native host library built by the
+script, the rows of two songs against ``extract_song`` and the split's
+first four versions at whisper-tiny card against CPU. Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -57,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 FAILURES: list[str] = []
+REPO = os.path.dirname(os.path.abspath(__file__))
 # the kernels of the extraction path (phases 6-7); K4 runs on the evaluate path (phase 10)
 EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp")
 # K2's lse against logsumexp of the plain f32 scores: the kernel's exp2/log2
@@ -190,7 +198,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
     from wealy_tpu_torch import _build
     from wealy_tpu_torch.audio import fused_mel
     from wealy_tpu_torch.audio import mel as tmel
@@ -713,6 +721,11 @@ def main() -> int:
         tally("19 serve daemon", daemon_phase(tmp, reset_counts, counts, smi))
         audio_launches = audio_query_phase(tmp, dev, reset_counts, counts, smi)
         tally("20 query --audio", audio_launches)
+
+    # 21. extraction over a split through the CLI at large-v3-turbo
+    with tempfile.TemporaryDirectory(prefix="wealy_split_") as tmp:
+        tally("21 extract over a split",
+              extract_split_phase(tmp, dev, reset_counts, counts, smi, 6 / turbo_s))
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for k in kernels.values():
@@ -740,8 +753,6 @@ def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed
     ``train_cliques`` and ``val_cliques`` of their own (drawn after the test
     split's, which stays the same). Returns (config path, [(version id,
     clique)] of the test split)."""
-    import csv
-
     from wealy_tpu_torch.data.embedding_store import EmbeddingStore
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -760,25 +771,46 @@ def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed
                 store.save(str(vid), "hs_last_seq.npz", embeddings=emb.half().cpu().numpy())
             first = 1000 + sum(map(len, splits.values()))
             splits[split] += [(first + k, f"{split}{c}") for k in range(per_clique)]
+    write_split_csvs(lc, splits)
+    cpath = write_config(os.path.join(root, "conf.json"), lc, os.path.join(root, "hs"),
+                         os.path.join(root, "cache"))
+    return cpath, splits["test"]
+
+
+def write_split_csvs(lc: str, splits: dict) -> None:
+    """``{split}_no_dup.csv`` of the lyric-covers layout (stdlib csv) from
+    ``{split: [(version id, clique label)]}``: a clique's first version is
+    the original, the others its covers."""
+    import csv
+
     header = ["original_id", "id", "is_cover", "song_text_type", "label"]
     for split, rows in splits.items():
+        first = {}
         with open(os.path.join(lc, f"{split}_no_dup.csv"), "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(header)
-            for i, (vid, label) in enumerate(rows):
-                w.writerow([rows[i - i % per_clique][0], vid, i % per_clique > 0, "o", label])
-    rows = splits["test"]
+            for vid, label in rows:
+                w.writerow([first.setdefault(label, vid), vid, first[label] != vid, "o", label])
+
+
+def write_config(path: str, lc: str, hs: str, cache: str, chunk_size: int = 1000,
+                 overlap: float = 0.9, **model) -> str:
+    """A project config for ``hs_last_seq`` (the 512-wide head); ``model``
+    adds keys such as ``whisper_size``, ``path.data`` comes with
+    ``data_root``."""
     conf = {
-        "path": {"lyric_covers_data": lc, "hidden_states": os.path.join(root, "hs"),
-                 "cache": os.path.join(root, "cache")},
+        "path": {"lyric_covers_data": lc, "hidden_states": hs, "cache": cache},
         "data": {"dataset_name": "lyric-covers", "embedding_type": "last_hidden_states",
-                 "embedding_format": "concat", "chunk_size": 1000, "overlap_percentage": 0.9},
+                 "embedding_format": "concat", "chunk_size": chunk_size,
+                 "overlap_percentage": overlap},
         "model": {"name": "whisper", "zdim": 512},
     }
-    cpath = os.path.join(root, "conf.json")
-    with open(cpath, "w") as f:
+    if "data_root" in model:
+        conf["path"]["data"] = model.pop("data_root")
+    conf["model"].update(model)
+    with open(path, "w") as f:
         json.dump(conf, f)
-    return cpath, rows
+    return path
 
 
 def run_cli_lines(argv) -> tuple[list, float]:
@@ -1564,6 +1596,329 @@ def audio_query_phase(tmp: str, dev, reset_counts, counts, smi: str,
         f"s) | {smi}")
     return launched
 
+
+def write_audio(path: str, x: np.ndarray, sr: int, kind: str) -> None:
+    """``x`` (n, channels) in [-1, 1] as a WAV: ``pcm16``, ``pcm24`` or
+    ``float32`` (IEEE float, format 3, which the stdlib module cannot
+    write)."""
+    import struct
+
+    channels = x.shape[1]
+    x = np.clip(x, -1, 1).reshape(-1)
+    if kind == "float32":
+        tag, bits, payload = 3, 32, x.astype("<f4").tobytes()
+    else:
+        bits = int(kind[3:])
+        ints = np.round(x * (2.0 ** (bits - 1) - 1)).astype(np.int64)
+        if bits == 24:
+            payload = ints.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+        else:
+            payload = ints.astype("<i2").tobytes()
+        tag = 1
+    block = channels * bits // 8
+    fmt = struct.pack("<HHIIHH", tag, channels, sr, sr * block, block, bits)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(payload)) + b"WAVE"
+                + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+                + b"data" + struct.pack("<I", len(payload)) + payload)
+
+
+def encode_mp3(x: np.ndarray, sr: int):
+    """Mono float PCM -> mp3 bytes (192 kbps) through the system
+    libmp3lame, or None where that library is absent."""
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("mp3lame")
+    if name is None:
+        return None
+    lame = ctypes.CDLL(name)
+    lame.lame_init.restype = ctypes.c_void_p
+    gfp = ctypes.c_void_p(lame.lame_init())
+    lame.lame_set_in_samplerate(gfp, ctypes.c_int(sr))
+    lame.lame_set_num_channels(gfp, ctypes.c_int(1))
+    lame.lame_set_brate(gfp, ctypes.c_int(192))
+    if lame.lame_init_params(gfp) < 0:
+        return None
+    x = np.ascontiguousarray(x, np.float32)
+    buf = ctypes.create_string_buffer(int(1.25 * len(x)) + 7200)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    m = lame.lame_encode_buffer_ieee_float(gfp, x.ctypes.data_as(f32p), x.ctypes.data_as(f32p),
+                                           ctypes.c_int(len(x)), buf, ctypes.c_int(len(buf)))
+    tail = ctypes.create_string_buffer(7200)
+    t = lame.lame_encode_flush(gfp, tail, ctypes.c_int(len(tail)))
+    lame.lame_close(gfp)
+    return buf.raw[:m] + tail.raw[:t] if m >= 0 and t >= 0 else None
+
+
+# phase 21's split: (seconds, rate, channels, format) per version, three a clique.
+# The pattern (27 chunks of 30 s) is followed by three repeats, each with a 30 s
+# 16-bit file in place of the empty one: 48 versions in 16 cliques, 108 chunks (110
+# with an mp3), so that x_concat at B=32 runs three full batches and hs_last_seq at
+# B=16 six, and each command's meter reads a steady rate.
+_SPLIT_PATTERN = [
+    (20, 16000, 1, "pcm16"), (35, 44100, 2, "pcm24"), (50, 48000, 1, "float32"),
+    (65, 16000, 1, "pcm16"), (80, 44100, 2, "pcm24"), (95, 48000, 1, "float32"),
+    (25, 44100, 2, "pcm24"), (45, 48000, 1, "float32"), (70, 16000, 1, "pcm16"),
+    (90, 48000, 1, "float32"), (30, 16000, 1, "empty"), (60, 44100, 2, "pcm24"),
+]
+SPLIT_AUDIO = _SPLIT_PATTERN + 3 * [(s, sr, ch, "pcm16" if kind == "empty" else kind)
+                                    for s, sr, ch, kind in _SPLIT_PATTERN]
+
+
+def write_audio_project(root: str, seed: int = 21) -> tuple[str, list, str]:
+    """A lyric-covers project with audio, in the layout of
+    tests/test_cli.py::project: ``<root>/data/LyricCovers/audio/<vid>/
+    <vid>_audio.mp3`` holding WAV bytes (the layout's name), one version an
+    empty file (it must degrade to 1 s of silence), and one real mp3 where
+    libmpg123 and libmp3lame are both present. Clique members share a tone
+    pair under their own noise. Returns (lyric-covers CSV dir, [(version
+    id, clique)], what was done about mp3)."""
+    from wealy_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    lc, audio = os.path.join(root, "lc"), os.path.join(root, "data", "LyricCovers", "audio")
+    os.makedirs(lc)
+    rows = []
+    for i, (seconds, sr, channels, kind) in enumerate(SPLIT_AUDIO):
+        vid, clique = 2100 + i, f"song{i // 3}"
+        path = os.path.join(audio, str(vid), f"{vid}_audio.mp3")
+        os.makedirs(os.path.dirname(path))
+        rows.append((vid, clique))
+        if kind == "empty":
+            open(path, "wb").close()
+            continue
+        t = np.arange(sr) / sr  # one second: each tone has a whole number of cycles in it
+        tone = np.tile(0.3 * np.sin(2 * np.pi * (220 + 55 * (i // 3)) * t) + 0.1 * np.sin(
+            2 * np.pi * 660 * t), seconds).astype(np.float32)
+        x = tone[:, None] + 0.05 * rng.standard_normal((len(tone), channels), np.float32)
+        write_audio(path, x, sr, kind)
+    import ctypes.util
+
+    has_mpg123 = native.mp3_available()
+    has_lame = ctypes.util.find_library("mp3lame") is not None
+    t = np.arange(40 * 22050) / 22050
+    data = encode_mp3(0.3 * np.sin(2 * np.pi * 220 * t) + 0.02 * rng.normal(size=len(t)),
+                      22050) if has_mpg123 and has_lame else None
+    mp3 = f"no mp3 version (libmpg123 {has_mpg123}, libmp3lame {has_lame})"
+    if data:
+        vid = 2100 + len(SPLIT_AUDIO)
+        path = os.path.join(audio, str(vid), f"{vid}_audio.mp3")
+        os.makedirs(os.path.dirname(path))
+        with open(path, "wb") as f:
+            f.write(data)
+        rows.append((vid, "song0"))
+        mp3 = f"version {vid}: a real 40 s mp3 at 22.05 kHz ({len(data)} bytes)"
+    write_split_csvs(lc, {"test": rows, "train": [], "val": []})
+    return lc, rows, mp3
+
+
+def token_prefix_rows(card_tokens, cpu_tokens, card_seq, cpu_seq, n_chunks, prompt: int,
+                      max_len: int, eot: int):
+    """Per version, the stored ``hs_last_seq`` rows of card and CPU split by
+    chunk (lengths from each side's tokens), and the rows written before the
+    first token where the two decodes part: (card lengths, CPU lengths,
+    [(card rows, CPU rows)])."""
+    def lengths(tokens):
+        ends = tokens == eot
+        ends[:, :prompt] = False
+        return np.where(ends.any(1), ends.argmax(1), max_len)
+
+    lc, lp = lengths(card_tokens), lengths(cpu_tokens)
+    pairs, row = [], 0
+    for v, n in n_chunks:
+        a, b, oa, ob = card_seq[v], cpu_seq[v], 0, 0
+        for c in range(row, row + n):
+            diff = np.nonzero(card_tokens[c] != cpu_tokens[c])[0]
+            same = min(int(diff[0]) if len(diff) else max_len, int(lc[c]), int(lp[c]),
+                       max_len - 1)  # the last position is never written
+            pairs.append((a[oa:oa + same], b[ob:ob + same]))
+            oa, ob = oa + int(lc[c]), ob + int(lp[c])
+        row += n
+    return lc, lp, pairs
+
+
+
+# phase 21's card-vs-CPU check at whisper-tiny: the split's first 4 versions, 8
+# chunks, at B=6, so that the second batch is partial (2 chunks, 4 zero rows)
+TINY_VERSIONS, TINY_BATCH = 4, 6
+
+
+def extract_split_phase(tmp: str, dev, reset_counts, counts, smi: str,
+                        per_song_rate: float) -> dict:
+    """21. Extraction over a split through the CLI at large-v3-turbo: the
+    audio project of :func:`write_audio_project` (test split), then a.
+    ``extract --batched --kinds x_concat --pack-direct --batch-size 32``,
+    b. ``extract --batched --kinds hs_last_seq --batch-size 16`` and
+    ``pack``, c. the same extract again (every version skipped), d.
+    ``evaluate --split test`` on the hs_last_seq pack. Checks: the native
+    library built and loaded, every version done, the pack equal to the
+    store, the batched x_concat rows of two songs against ``extract_song``
+    on the card, and the split's first versions (every WAV format) at
+    whisper-tiny, card against CPU. Returns the launches of a-d."""
+    from wealy_tpu_torch import native
+    from wealy_tpu_torch.audio.decode import load_audio
+    from wealy_tpu_torch.cli import extract_batched
+    from wealy_tpu_torch.data.audio_dataset import AudioDataset
+    from wealy_tpu_torch.data.dataset import build_clean_dataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.data.packed_store import PackedStore
+    from wealy_tpu_torch.models.whisper import extract as wextract
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wealy_tpu_torch.models.whisper.generate import default_prompt
+    from wealy_tpu_torch.train.config import Config
+
+    t0 = time.perf_counter()
+    built = native.available()
+    lib = native.library_path()
+    check(built and str(lib).startswith(os.path.join(REPO, "wealy_tpu_torch", "native", "_build")),
+          f"phase 21 native library: {native.build_error()} at {lib}")
+    native_s = native.build_seconds
+    lc, rows, mp3 = write_audio_project(tmp)
+    setup_s = time.perf_counter() - t0
+    n = len(rows)
+    hs, data = os.path.join(tmp, "hs"), os.path.join(tmp, "data")
+    cpath = write_config(os.path.join(tmp, "turbo.json"), lc, hs, os.path.join(tmp, "cache"),
+                         chunk_size=224, overlap=0.5, whisper_size="large-v3-turbo",
+                         data_root=data)
+    base = ["extract", "--config", cpath, "--split", "test", "--batched"]
+
+    # each command's model build from the seed, timed where the split job makes
+    # it, so that the extraction's own rate is read without it; the x_concat
+    # command's model is kept for the extract_song check below
+    builds, kept = [], []
+    real_load = extract_batched.load_whisper_model
+
+    def timed_load(*args, **kw):
+        t = time.perf_counter()
+        out = real_load(*args, **kw)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t)
+        if not kept:
+            kept.append(out)
+        return out
+
+    reset_counts()
+    with mock.patch.object(extract_batched, "load_whisper_model", timed_load):
+        xc, xc_s = run_cli(base + ["--kinds", "x_concat", "--pack-direct", "--batch-size", "32"])
+        hl, hl_s = run_cli(base + ["--kinds", "hs_last_seq", "--batch-size", "16"])
+    check(len(builds) == 2, f"phase 21 model builds {builds} (one a command)")
+    xc_build, hl_build = builds
+    packed, _ = run_cli(["pack", "--config", cpath])
+    again, again_s = run_cli(base + ["--kinds", "hs_last_seq", "--batch-size", "16"])
+    ev, ev_s = run_cli(["evaluate", "--config", cpath, "--split", "test"])
+    launched = counts()
+
+    chunks = xc["throughput"]["total_items"]
+    for name, out in (("x_concat", xc), ("hs_last_seq", hl)):
+        check(out["done"] == n and out["skipped"] == 0 and out["incomplete"] == [],
+              f"phase 21 {name} {out} (expected {n} done)")
+    check(again["done"] == 0 and again["skipped"] == n, f"phase 21 resume {again}")
+    check(packed["versions_packed"] == n, f"phase 21 pack {packed}")
+    check(all(math.isfinite(ev[k]) for k in ("MAP", "MR1")) and ev["n_queries"] == n,
+          f"phase 21 evaluate {ev}")
+    check(all(launched[k] > 0 for k in (*EXTRACT_KERNELS, "bpwr_redux")),
+          f"phase 21 launches {launched}")
+
+    store = EmbeddingStore(hs, "lyric-covers")
+    seq_pack = PackedStore(hs, "hs_last_seq", dataset_name="lyric-covers")
+    xc_pack = PackedStore(hs, "x_concat", dataset_name="lyric-covers")
+    same = all(np.array_equal(seq_pack.load(str(v)), store.load(str(v), "hs_last_seq.npz")[
+        "embeddings"]) for v, _ in rows)
+    check(same and len(xc_pack) == n, f"phase 21 packs: hs_last_seq == store {same}, "
+          f"x_concat {len(xc_pack)} of {n}")
+    silent = xc_pack.load("2110")
+    check(silent.shape == (1, 1280) and bool(np.isfinite(silent).all()),
+          f"phase 21 the empty file's x_concat {silent.shape}")
+    check(all(np.isfinite(xc_pack.load(str(v))).all() and np.isfinite(
+        seq_pack.load(str(v))).all() for v, _ in rows), "phase 21 stored arrays not finite")
+
+    # the batched rows of two songs against extract_song on the card, with the
+    # x_concat command's own model, decoded by the same host path
+    model, cfg = kept.pop()
+    song_cos = []
+    for v in (2105, 2111):
+        path = os.path.join(data, "LyricCovers", "audio", str(v), f"{v}_audio.mp3")
+        want = wextract.extract_song(model, load_audio(path), cfg, kinds=("x_concat",))
+        song_cos.append(min_row_cos(torch.from_numpy(xc_pack.load(str(v))),
+                                    torch.from_numpy(want["x_concat"])))
+    check(min(song_cos) >= 0.999, f"phase 21 batched x_concat vs extract_song cos {song_cos}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the same split at whisper-tiny, card against CPU; each decode's tokens
+    # are kept to find where the two greedy transcriptions part
+    tokens = {}
+    real = wextract.decoder_embeddings
+
+    def recording(where):
+        def decoder_embeddings(*args, **kw):
+            out = real(*args, **kw)
+            tokens.setdefault(where, []).append(out["tokens"].cpu().numpy())
+            return out
+        return decoder_embeddings
+
+    tiny, walls = {}, {}
+    for where in ("cuda", "cpu"):
+        tconf = write_config(os.path.join(tmp, f"tiny_{where}.json"), lc,
+                             os.path.join(tmp, f"hs_tiny_{where}"),
+                             os.path.join(tmp, f"cache_tiny_{where}"), whisper_size="tiny",
+                             data_root=data)
+        t = time.perf_counter()
+        # the split's first TINY_VERSIONS versions (all three WAV formats): a
+        # full batch, then a partial one that each side pads with zero rows
+        tiny_args = ["extract", "--config", tconf, "--split", "test", "--batched", "--limit",
+                     str(TINY_VERSIONS), "--batch-size", str(TINY_BATCH), "--device", where]
+        run_cli(tiny_args + ["--kinds", "x_concat"])
+        with mock.patch.object(wextract, "decoder_embeddings", recording(where)):
+            run_cli(tiny_args + ["--kinds", "hs_last_seq"])
+        walls[where] = time.perf_counter() - t
+        tiny[where] = EmbeddingStore(os.path.join(tmp, f"hs_tiny_{where}"), "lyric-covers")
+    # the chunk order of the split jobs: the versions as the dataset lists them
+    md, _ = build_clean_dataset(Config.from_file(tconf), check_audio=True)
+    order = AudioDataset(md, "test", data).versions[:TINY_VERSIONS]
+    xcos = min(min_row_cos(*(torch.from_numpy(tiny[w].load(v, "x_concat.npz")["embeddings"])
+                             for w in ("cuda", "cpu"))) for v in order)
+    seqs = {w: {v: tiny[w].load(v, "hs_last_seq.npz")["embeddings"] for v in order}
+            for w in ("cuda", "cpu")}
+    n_chunks = [(v, tiny["cpu"].load(v, "x_concat.npz")["embeddings"].shape[0]) for v in order]
+    total = sum(c for _, c in n_chunks)
+    toks = {w: np.concatenate(tokens[w])[:total] for w in ("cuda", "cpu")}
+    tcfg = WHISPER_CONFIGS["tiny"]
+    lc_, lp_, pairs = token_prefix_rows(toks["cuda"], toks["cpu"], seqs["cuda"], seqs["cpu"],
+                                        n_chunks, prompt=len(default_prompt(tcfg)), max_len=224,
+                                        eot=tcfg.eot)
+    compared = sum(len(a) for a, _ in pairs)
+    scos = min(min_row_cos(torch.from_numpy(a), torch.from_numpy(b)) for a, b in pairs if len(a))
+    check(xcos >= 0.999, f"phase 21 tiny x_concat card vs CPU cos {xcos:.6f}")
+    check(np.array_equal(lc_, lp_), "phase 21 tiny hs_last_seq lengths differ card vs CPU")
+    check(scos >= 0.999, f"phase 21 tiny hs_last_seq card vs CPU cos {scos:.6f}")
+
+    hl_chunks = hl["throughput"]["total_items"]
+    check(xc["throughput"]["total_steps"] > 3 and hl["throughput"]["total_steps"] > 6,
+          f"phase 21 batches {xc['throughput']} {hl['throughput']} (want 3 and 6 full ones)")
+    cliques = len({c for _, c in rows})
+    say(f"[21 extract over a split] {n} versions in {cliques} cliques, {chunks} chunks (16-bit "
+        f"16 kHz, 24-bit 44.1 kHz stereo, float 48 kHz, one empty file -> 1 s silence; {mp3}); "
+        f"native library "
+        f"{'built in %.2f s' % native_s if native_s is not None else 'loaded'}, setup "
+        f"{setup_s:.2f} s | large-v3-turbo: a. x_concat --pack-direct B=32 {xc_s:.2f} s wall "
+        f"= {chunks / xc_s:.2f} chunks/s; less its model build {xc_build:.2f} s: "
+        f"{chunks / (xc_s - xc_build):.2f} chunks/s; meter {xc['throughput']['items_per_sec']} "
+        f"chunks/s ({xc['throughput']['total_steps']} batches); b. hs_last_seq B=16 max_len 224 "
+        f"{hl_s:.2f} s = {hl_chunks / hl_s:.2f} chunks/s; less its model build "
+        f"{hl_build:.2f} s: {hl_chunks / (hl_s - hl_build):.2f} chunks/s; meter "
+        f"{hl['throughput']['items_per_sec']} chunks/s ({hl['throughput']['total_steps']} "
+        f"batches); c. resume {again_s:.2f} s, "
+        f"{again['skipped']} skipped; "
+        f"d. evaluate MAP {ev['MAP']:.4f} MR1 {ev['MR1']:.2f} {ev_s:.2f} s; phase 7 per song "
+        f"{per_song_rate:.2f} clips/s | batched x_concat vs extract_song cos "
+        f"{min(song_cos):.6f}; tiny card vs CPU: x_concat cos {xcos:.6f}, hs_last_seq lengths "
+        f"equal {np.array_equal(lc_, lp_)}, {compared} rows before the tokens part cos "
+        f"{scos:.6f} over the first {TINY_VERSIONS} versions (card {walls['cuda']:.2f} s, CPU "
+        f"{walls['cpu']:.2f} s); launches {launched}; phase {time.perf_counter() - t0:.1f} s "
+        f"| {smi}")
+    return launched
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -10,8 +10,11 @@ import pytest
 
 from wealy_tpu.audio.decode import _decode_wav as j_decode_wav
 from wealy_tpu.audio.resample import resample as j_resample
+from wealy_tpu_torch import native
 from wealy_tpu_torch.audio import decode as tdecode
 from wealy_tpu_torch.audio.resample import resample
+
+from test_torch_native import jnative  # noqa: F401  (the JAX native library, built race-free)
 
 RESAMPLE_ATOL = 2e-4  # wealy_tpu/audio/decode.py:68-69
 
@@ -76,12 +79,58 @@ def test_load_audio_resamples_and_dispatches_by_content(tmp_path):
     np.testing.assert_allclose(got, want, atol=RESAMPLE_ATOL, rtol=0)
 
 
-def test_what_the_port_does_not_decode_raises(tmp_path):
-    mp3 = tmp_path / "real.mp3"
-    mp3.write_bytes(b"ID3\x03\x00" + bytes(64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        tdecode.load_audio(mp3)
-    wav24 = tmp_path / "deep.wav"
-    _write(wav24, np.zeros(300, np.uint8), 16000, 3, 1)
-    with pytest.raises(ValueError, match="24-bit"):
-        tdecode.load_audio(wav24)
+def _junk_mp3(path):
+    path.write_bytes(b"ID3\x03\x00" + bytes(64))
+
+
+def _unknown_format(path):
+    path.write_bytes(b"OggS" + bytes(64))
+
+
+@pytest.mark.parametrize("name,write", [("real.mp3", _junk_mp3), ("clip.ogg", _unknown_format)])
+def test_what_the_port_does_not_decode_raises(tmp_path, monkeypatch, name, write):
+    """What the JAX package cannot decode without an ffmpeg binary (a file
+    libmpg123 rejects, a format with no decoder of its own) raises the same
+    way in the port."""
+    from wealy_tpu.audio.decode import load_audio as j_load
+
+    path = tmp_path / name
+    write(path)
+    monkeypatch.setattr(tdecode.shutil, "which", lambda binary: None)
+    monkeypatch.setattr("wealy_tpu.audio.decode.shutil.which", lambda binary: None)
+    with pytest.raises(RuntimeError, match="cannot decode"):
+        tdecode.load_audio(path)
+    with pytest.raises(RuntimeError, match="cannot decode"):
+        j_load(path)
+
+
+def _wav24(path, rng):
+    pcm = rng.integers(-(2 ** 23), 2 ** 23, size=2 * 4410)
+    u = (pcm & 0xFFFFFF).astype("<u4")
+    raw = np.stack([u & 0xFF, (u >> 8) & 0xFF, (u >> 16) & 0xFF], 1).astype(np.uint8)
+    _write(path, raw, 44100, 3, 2)
+
+
+def _mp3(path, rng):
+    from test_torch_native import _lame, encode_mp3
+
+    if not native.mp3_available() or _lame() is None:
+        pytest.skip("libmpg123/libmp3lame not available")
+    t = np.arange(22050) / 22050
+    path.write_bytes(encode_mp3((0.4 * np.sin(2 * np.pi * 440 * t)).astype(np.float32), 22050))
+
+
+@pytest.mark.parametrize("name,write", [("deep.wav", _wav24), ("deep_audio.mp3", _wav24),
+                                        ("real.mp3", _mp3)])
+def test_what_the_port_now_decodes(jnative, tmp_path, name, write):
+    """24-bit WAVs (under either name) and mp3 go through the native
+    library: the samples the JAX package's load_audio gives, resampled to
+    16 kHz, bit for bit."""
+    from wealy_tpu.audio.decode import load_audio as j_load
+
+    path = tmp_path / name
+    write(path, np.random.default_rng(5))
+    got = tdecode.load_audio(path)
+    want = j_load(path)
+    assert got.dtype == np.float32 and got.shape == want.shape and len(got) > 1000
+    np.testing.assert_array_equal(got, want)

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax():
             "wealy_tpu_torch.utils.prefetch", "wealy_tpu_torch.ops.layer_norm",
             "wealy_tpu_torch.utils.hostmem", "wealy_tpu_torch.audio.decode",
             "wealy_tpu_torch.audio.resample", "wealy_tpu_torch.cli.extract_batched",
-            "wealy_tpu_torch.cli.serve"} <= set(mods)
+            "wealy_tpu_torch.cli.serve", "wealy_tpu_torch.native",
+            "wealy_tpu_torch.data.audio_dataset", "wealy_tpu_torch.data.transcription",
+            "wealy_tpu_torch.utils.profiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -282,7 +284,8 @@ def test_build_flags_and_source_hash():
 
 
 @pytest.mark.parametrize("command", [
-    ["train"], ["evaluate", "--split", "test"], ["index", "--out", "idx.npz"],
+    ["train"], ["evaluate", "--split", "test"], ["extract", "--split", "test", "--batched"],
+    ["index", "--out", "idx.npz"],
     ["query", "--index", "idx.npz", "--query-embeddings", "q.npz"], ["serve", "--index", "idx.npz"],
 ])
 def test_entry_points_refuse_cpu_unless_asked(tmp_path, command):

@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = CSRC / "_build"
@@ -70,12 +70,39 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+def content_key(*parts: bytes) -> str:
+    """A 16-hex-digit key of ``parts`` (sources, flags, host): the name of
+    a build directory, so that a change to any part builds anew."""
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part)
     return h.hexdigest()[:16]
+
+
+def _source_hash() -> str:
+    return content_key(" ".join(NVCC_FLAGS).encode(),
+                       *(p.name.encode() + p.read_bytes() for p in sources()))
+
+
+def build_once(lib_path: Path, make: Callable[[Path], str]
+               ) -> tuple[Optional[Path], str, Optional[float]]:
+    """Build the shared library ``lib_path`` unless it exists. ``make(tmp)``
+    writes it under a name of this process and thread and returns "" or
+    why it failed; the finished file is then renamed into place, so a
+    concurrent process or thread never loads a partial library. Returns
+    (``lib_path``, "", seconds of ``make`` or None where the library was
+    already there) or (None, why, None)."""
+    if lib_path.exists():
+        return lib_path, "", None
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    why = make(tmp)
+    if why:
+        tmp.unlink(missing_ok=True)
+        return None, why, None
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
+    return lib_path, "", time.perf_counter() - t0
 
 
 def _nvcc() -> str:
@@ -91,21 +118,14 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of the current sources exists;
-    returns the library path."""
-    global build_seconds
-    out_dir = BUILD_ROOT / _source_hash()
-    lib_path = out_dir / LIB_NAME
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
+def _compile_and_link(tmp: Path) -> str:
+    """One ``nvcc`` per source, all started together, then the link into
+    ``tmp``; the log goes to ``build.log`` beside it. Returns "" or the
+    failures."""
     nvcc = _nvcc()
-    tag = os.getpid()
-    t0 = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = out_dir / f"{src.stem}.{tag}.o"
+        obj = tmp.with_name(f"{src.stem}.{tmp.name}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
@@ -116,19 +136,27 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(f"{Path(cmd[-1]).name} (exit {proc.returncode}):\n{output[-3000:]}")
     if not failed:
-        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
-    (out_dir / "build.log").write_text("\n".join(log))
+    (tmp.parent / "build.log").write_text("\n".join(log))
     for _, obj, _ in jobs:
         obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
-    build_seconds = time.perf_counter() - t0
+    return "\n".join(failed)
+
+
+def build() -> Path:
+    """Compile the kernels unless a build of the current sources exists;
+    returns the library path."""
+    global build_seconds
+    lib_path, why, seconds = build_once(BUILD_ROOT / _source_hash() / LIB_NAME,
+                                        _compile_and_link)
+    if lib_path is None:
+        raise RuntimeError("nvcc failed: " + why)
+    if seconds is not None:
+        build_seconds = seconds
     return lib_path
 
 

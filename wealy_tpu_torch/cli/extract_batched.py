@@ -1,5 +1,25 @@
-"""The embed functions of the query path, the counterpart of the three
-factories of ``wealy_tpu.cli.extract_batched`` that ``cli/serve.py`` uses:
+"""Batched extraction over a split, the counterpart of
+``wealy_tpu.cli.extract_batched``.
+
+The split jobs pack 30 s chunks from many songs into fixed-size device
+batches, keep the host decode running ahead (a thread pool with a bounded,
+ordered window, behind :func:`wealy_tpu_torch.utils.prefetch.prefetch`),
+and scatter each batch's rows back into per-song accumulators that flush to
+the store (or a ``sink``) as soon as a song is complete:
+
+- :func:`extract_split_batched`: ``embed_fn(audio (B, 480000)) -> (B, D)``,
+  one row per chunk (``x_concat``, ``hs_wealy_concat``);
+- :func:`extract_split_batched_decoder`: ``decode_fn(audio) -> (hidden (B,
+  max_len, D), lengths (B,))``; ``hs_last_seq`` keeps each chunk's valid
+  positions end to end, ``hs_last_all`` stores (n_chunks, max_len, D) with
+  ``lengths``.
+
+The decode threads stay on the host (numpy and the native library, which
+releases the GIL); every CUDA call is made on the calling thread, and each
+batch costs one device-to-host copy. The last batch is padded with zero
+rows to ``batch_size``, so the embed function sees one shape.
+
+The embed functions of the split jobs and of the query path:
 
 - :func:`make_encoder_embed_fn`: mel (K1) -> encoder (K2/K3) -> mean pool,
   one ``x_concat`` row per 30 s chunk;
@@ -10,28 +30,278 @@ factories of ``wealy_tpu.cli.extract_batched`` that ``cli/serve.py`` uses:
 Each builds the Whisper model once (``model.whisper_size``, weights from an
 openai-whisper/HF checkpoint or the seeded init of ``load_whisper_model``)
 and returns ``fn(audio)`` for a (B, 480000) batch of 16 kHz chunks. The
-split-level jobs (``extract_split_batched*``) come with the extraction
-slice (ROADMAP item 3); the int8 encoder, the f8 KV caches and the mesh/TP
-options raise ``NotImplementedError``.
+f8 KV caches (ROADMAP item 5), the int8 encoder and the mesh and
+tensor-parallel paths (item 6) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+from wealy_tpu_torch.audio.mel import N_SAMPLES
 from wealy_tpu_torch.cli.extract import load_whisper_model
+from wealy_tpu_torch.models.whisper.extract import chunk_waveform
+from wealy_tpu_torch.utils.prefetch import prefetch
+from wealy_tpu_torch.utils.profiling import ThroughputMeter
+
+
+@dataclasses.dataclass
+class _SongAcc:
+    version_key: str
+    n_chunks: int
+    received: int = 0
+    embeddings: Optional[np.ndarray] = None  # (n_chunks, D)
+
+
+def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
+                  ) -> Iterator[Tuple[str, int, int, np.ndarray]]:
+    """Yield (version_key, chunk_idx, n_chunks, chunk_audio) on the host.
+
+    ``n_workers > 1`` decodes files on a thread pool with a bounded
+    in-flight window of ``2 * n_workers`` songs, in order. Decode is the
+    native library and numpy, which release the GIL, so threads decode in
+    parallel.
+    """
+    versions = ds.versions[:limit] if limit else ds.versions
+    index_of = {v: i for i, v in enumerate(ds.versions)}
+
+    def chunks_of(version_key, item):
+        chunks = chunk_waveform(item.waveform)
+        for i in range(chunks.shape[0]):
+            yield version_key, i, chunks.shape[0], chunks[i]
+
+    if n_workers <= 1:
+        for version_key in versions:
+            yield from chunks_of(version_key, ds[index_of[version_key]])
+        return
+
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=n_workers, thread_name_prefix="decode") as pool:
+        pending = deque()
+        it = iter(versions)
+
+        def submit_next() -> bool:
+            v = next(it, None)
+            if v is None:
+                return False
+            pending.append((v, pool.submit(ds.__getitem__, index_of[v])))
+            return True
+
+        for _ in range(2 * n_workers):
+            if not submit_next():
+                break
+        while pending:
+            version_key, fut = pending.popleft()
+            item = fut.result()
+            submit_next()
+            yield from chunks_of(version_key, item)
+
+
+def _host(x) -> np.ndarray:
+    """A batch output as f32 numpy (a bf16 tensor through ``float()``: numpy
+    has no bf16). For a card tensor this is the batch's one sync."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _schedule(config, metadata, split: str, filename: str, limit, overwrite, skip_fn):
+    """(store, dataset with the versions to run, number skipped): the first
+    ``limit`` versions of the split, less those already stored (or in the
+    ``skip_fn`` sink) unless ``overwrite``. One process, so every version
+    is this process's (the JAX package's ``host_shard`` is the identity)."""
+    from wealy_tpu_torch.data.audio_dataset import AudioDataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+
+    store = EmbeddingStore(config.path.hidden_states, config.data.dataset_name)
+    ds = AudioDataset(metadata, split, config.path.data)
+    if limit:
+        ds.versions = ds.versions[:limit]
+    skipped = 0
+    if not overwrite:
+        exists = skip_fn or (lambda v: store.exists(v, filename))
+        versions = [v for v in ds.versions if not exists(v)]
+        skipped = len(ds.versions) - len(versions)
+        ds.versions = versions
+    return store, ds, skipped
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: a batch sharded over several cards waits for ROADMAP item 6; the port "
+            "extracts on one card"
+        )
+
+
+def _batches(ds, batch_size: int, n_workers: int):
+    """Lists of up to ``batch_size`` stream entries, the last one partial."""
+    pending: List[Tuple[str, int, int, np.ndarray]] = []
+    for entry in prefetch(_chunk_stream(ds, None, n_workers=n_workers), depth=2 * batch_size):
+        pending.append(entry)
+        if len(pending) == batch_size:
+            yield pending
+            pending = []
+    if pending:
+        yield pending
+
+
+def _padded(batch, buf: np.ndarray) -> torch.Tensor:
+    """The batch's chunks in the rows of ``buf``, zero rows after them."""
+    for i, (_, _, _, chunk) in enumerate(batch):
+        buf[i] = chunk
+    buf[len(batch):] = 0.0
+    return torch.from_numpy(buf)
+
+
+def _audit(config, store, metadata, filename: str, sink) -> None:
+    """The store's missing-work lists into ``path.cache``; a custom sink
+    keeps its own account (the npz census would list every version)."""
+    audit_dir = config.path.cache or config.path.working_dir
+    if audit_dir and sink is None:
+        store.verify(metadata, filename, out_dir=audit_dir)
+
+
+def extract_split_batched(
+    config,
+    metadata,
+    split: str,
+    embed_fn: Callable,
+    *,
+    kind: str = "x_concat",
+    batch_size: int = 32,
+    mesh=None,
+    limit: Optional[int] = None,
+    overwrite: bool = False,
+    n_workers: int = 4,
+    log: Callable[[str], None] = print,
+    sink: Optional[Callable] = None,
+    skip_fn: Optional[Callable[[str], bool]] = None,
+) -> dict:
+    """Run one embedding kind over a split with cross-song chunk batching.
+
+    ``embed_fn(audio (batch_size, N_SAMPLES) f32 CPU tensor) -> (B, D)``
+    is the device path (mel + encoder [+ head]); it sees one batch shape.
+    ``sink(version_key, **arrays)`` replaces the per-version npz write (the
+    direct-to-pack path of ``extract --pack-direct``) and
+    ``skip_fn(version_key)`` the npz-existence resume check to match it.
+
+    Returns {"done": [...], "skipped": n, "incomplete": [...],
+    "throughput": ThroughputMeter.report()}.
+    """
+    _check_mesh(mesh)
+    filename = f"{kind}.npz"
+    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn)
+    save = sink or (lambda v, **arrays: store.save(v, filename, **arrays))
+    meter = ThroughputMeter(window=20)
+    accs: Dict[str, _SongAcc] = {}
+    done: List[str] = []
+    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
+
+    for batch in _batches(ds, batch_size, n_workers):
+        out = embed_fn(_padded(batch, buf))
+        z = _host(out)[: len(batch)]
+        meter.tick(len(batch))
+        for (version_key, chunk_idx, n_chunks, _), emb in zip(batch, z):
+            acc = accs.get(version_key)
+            if acc is None:
+                acc = accs[version_key] = _SongAcc(version_key, n_chunks)
+            if acc.embeddings is None:
+                acc.embeddings = np.zeros((n_chunks, emb.shape[-1]), np.float32)
+            acc.embeddings[chunk_idx] = emb
+            acc.received += 1
+            if acc.received == acc.n_chunks:
+                save(version_key, embeddings=acc.embeddings)
+                done.append(version_key)
+                del accs[version_key]
+        if done and len(done) % 200 == 0:
+            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
+
+    _audit(config, store, metadata, filename, sink)
+    # a partly filled accumulator is a fault of this job: reported, not stored
+    return {"done": done, "skipped": skipped, "incomplete": sorted(accs),
+            "throughput": meter.report()}
+
+
+def extract_split_batched_decoder(
+    config,
+    metadata,
+    split: str,
+    decode_fn: Callable,
+    *,
+    kind: str = "hs_last_seq",
+    batch_size: int = 16,
+    limit: Optional[int] = None,
+    overwrite: bool = False,
+    n_workers: int = 4,
+    log: Callable[[str], None] = print,
+    sink: Optional[Callable] = None,
+    skip_fn: Optional[Callable[[str], bool]] = None,
+) -> dict:
+    """Batched decoder-embedding extraction (the ``hs_last_all`` /
+    ``hs_last_seq`` kinds and their ``_en`` variants).
+
+    ``decode_fn(audio (batch_size, N_SAMPLES)) -> (hidden (B, max_len, D),
+    lengths (B,))``, see :func:`make_decoder_embed_fn`. Chunks of many songs
+    share device batches as in :func:`extract_split_batched`; a song stores
+    ``hidden (n_chunks, max_len, D)`` + ``lengths`` (``hs_last_all``), or
+    its chunks' valid positions end to end (``hs_last_seq``).
+    """
+    from wealy_tpu_torch.models.whisper.extract import flatten_decoder_sequence
+
+    filename = f"{kind}.npz"
+    flatten = kind.startswith("hs_last_seq")
+    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn)
+    save = sink or (lambda v, **arrays: store.save(v, filename, **arrays))
+    meter = ThroughputMeter(window=20)
+    hidden_acc: Dict[str, list] = {}
+    length_acc: Dict[str, list] = {}
+    done: List[str] = []
+    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
+
+    for batch in _batches(ds, batch_size, n_workers):
+        hidden, lengths = decode_fn(_padded(batch, buf))
+        hidden = _host(hidden)[: len(batch)]
+        lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
+        meter.tick(len(batch))
+        for (version_key, chunk_idx, n_chunks, _), hid, L in zip(batch, hidden, lengths):
+            hidden_acc.setdefault(version_key, [None] * n_chunks)[chunk_idx] = hid
+            length_acc.setdefault(version_key, [0] * n_chunks)[chunk_idx] = int(L)
+            if all(h is not None for h in hidden_acc[version_key]):
+                hid_all = np.stack(hidden_acc[version_key])  # (n_chunks, max_len, D)
+                lens = np.array(length_acc[version_key], np.int32)
+                if flatten:
+                    save(version_key, embeddings=flatten_decoder_sequence(hid_all, lens))
+                else:
+                    save(version_key, embeddings=hid_all, lengths=lens)
+                done.append(version_key)
+                del hidden_acc[version_key], length_acc[version_key]
+        if done and len(done) % 200 == 0:
+            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
+
+    _audit(config, store, metadata, filename, sink)
+    return {"done": done, "skipped": skipped, "incomplete": sorted(hidden_acc),
+            "throughput": meter.report()}
+
+
+# the ROADMAP item each option of the embed factories waits for
+_ITEM = {"quant_int8": 6, "cross_kv_f8": 5, "self_kv_f8": 5, "mesh": 6, "tp": 6}
 
 
 def _refuse(**options) -> None:
     on = sorted(name for name, value in options.items() if value)
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)}: the int8 encoder and the f8 KV caches wait for ROADMAP item 5, "
-            "the mesh and tensor-parallel paths for item 6"
+            "not in this port yet: "
+            + ", ".join(f"{name} (ROADMAP item {_ITEM[name]})" for name in on)
         )
 
 

@@ -1,7 +1,11 @@
-"""Command-line entry of the port: ``validate-data``, ``train``,
-``evaluate``, and the serving commands ``index``, ``query`` and ``serve``.
+"""Command-line entry of the port: ``validate-data``, ``extract``, ``pack``,
+``train``, ``evaluate``, and the serving commands ``index``, ``query`` and
+``serve``.
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
+    python -m wealy_tpu_torch.cli.main extract --config conf.json --split train \\
+        [--kinds x_concat,hs_last_seq] [--batched [--batch-size N] [--pack-direct]] [--pack]
+    python -m wealy_tpu_torch.cli.main pack --config conf.json [--split test] [--kind F.npz]
     python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
         [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint PATH]
@@ -13,6 +17,12 @@
 The counterpart of ``wealy_tpu.cli.main`` for these commands, with the JAX
 parser's flags plus ``--device {cuda,cpu}`` (default ``cuda``: without a
 card the command exits with an error unless ``--device cpu`` is given).
+``extract`` writes per-version ``{kind}.npz`` files (one song at a time, or
+chunks of many songs per device batch with ``--batched``) and ``pack``
+writes the packed mmap store; both write the JAX package's formats.
+``extract``'s ``--quant-int8``, ``--tp`` above 1 and ``--profile`` (ROADMAP
+item 6), ``--cross-kv-f8`` / ``--self-kv-f8`` (item 5) and the ``hs_clews``
+kind (item 4) are parsed and raise ``NotImplementedError``.
 ``train`` trains the ``whisper`` head on stored embeddings with the
 configured loss (clews, ntxent, triplet), AdamW, ``train.grad_accum``, the
 val-split MAP hook every ``train.eval_every`` steps and ``torch.save``
@@ -23,13 +33,14 @@ the JAX package's orbax directories need JAX to read. Without one the head
 is initialised from ``torch.Generator`` seed 0
 (``models/heads.py::seeded_init_``), which is not the JAX package's init.
 The serving commands live in :mod:`wealy_tpu_torch.cli.serve`. Fusion
-models and ``--test-mode`` come with the CLEWS/fusion slice; ``--profile``
-with ``utils/profiling.py``.
+models and ``--test-mode`` come with the CLEWS/fusion slice (ROADMAP item
+4); ``--profile`` with item 6.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -101,6 +112,167 @@ def cmd_validate_data(args) -> int:
     reports = {s: validate_data_structures(md, s) for s in ("train", "val", "test")}
     print(json.dumps(reports, indent=2))
     return 0 if all(r["ok"] for r in reports.values()) else 1
+
+
+def _refuse_unported(args, kind: str) -> None:
+    """``extract`` options the port parses but does not run yet: each raises
+    naming its ROADMAP item."""
+    items = {
+        "--profile": (args.profile, 6), "--tp": (args.tp > 1, 6),
+        "--quant-int8": (args.quant_int8, 6), "--cross-kv-f8": (args.cross_kv_f8, 5),
+        "--self-kv-f8": (args.self_kv_f8, 5), "the hs_clews kind": (kind == "hs_clews", 4),
+    }
+    on = [f"{name} (ROADMAP item {item})" for name, (set_, item) in items.items() if set_]
+    if on:
+        raise NotImplementedError(f"extract: not in this port yet: {', '.join(on)}")
+
+
+def _lazy(factory):
+    """An embed function built on its first call, so that a run whose every
+    version is already stored loads no model."""
+    fn = None
+
+    def call(audio):
+        nonlocal fn
+        if fn is None:
+            fn = factory()
+        return fn(audio)
+
+    return call
+
+
+def cmd_extract(args) -> int:
+    """Extract embeddings of a split into the store (or, with
+    ``--pack-direct``, straight into the pack); one JSON line."""
+    from wealy_tpu_torch.cli.extract import extract_split
+    from wealy_tpu_torch.data.dataset import build_clean_dataset
+
+    kinds = args.kinds.split(",")
+    kind = kinds[0]
+    if args.pack_direct and not args.batched:
+        print("[extract] --pack-direct requires --batched", file=sys.stderr)
+        return 2
+    if args.quant_int8 and (not args.batched or kind.startswith("hs_")):
+        print("[extract] --quant-int8 requires --batched and an encoder kind (x_concat)",
+              file=sys.stderr)
+        return 2
+    if args.pack_direct and args.pack:
+        # --pack re-packs from the per-version store, which --pack-direct never
+        # writes: composing them would overwrite the direct pack with stale rows
+        print("[extract] --pack and --pack-direct are mutually exclusive (--pack-direct "
+              "already produces the pack)", file=sys.stderr)
+        return 2
+    if args.pack_direct and kind == "hs_last_all":
+        print("[extract] --pack-direct unsupported for hs_last_all (two-array payload); use "
+              "--pack", file=sys.stderr)
+        return 2
+    _refuse_unported(args, kind)
+    device = resolve_device(args.device)
+    config = _load_config(args.config)
+    md, _ = build_clean_dataset(config, check_audio=True)
+    if not args.batched:
+        result = extract_split(config, md, args.split, kinds=tuple(kinds),
+                               hf_checkpoint=args.hf_checkpoint, limit=args.limit,
+                               overwrite=args.overwrite, device=device)
+        print(json.dumps({k: len(v) for k, v in result.items()}
+                         | {"failed_keys": result["failed"][:20]}))
+        if args.pack:
+            for k in kinds:
+                _pack_kind(config, md, k)
+        return 0 if not result["failed"] else 1
+
+    from wealy_tpu_torch.cli import extract_batched as eb
+
+    sink = skip_fn = writer = None
+    if args.pack_direct:
+        # completed songs stream straight into the pack; a resume carries the
+        # old pack's rows forward, and readers see the old pack until close()
+        from wealy_tpu_torch.data.packed_store import PackedStore, PackWriter
+
+        root, name = config.path.hidden_states, config.data.dataset_name
+        writer = PackWriter(root, kind, dataset_name=name)
+        old = PackedStore(root, kind, dataset_name=name)
+        if old.available:
+            carry = list(old.keys())
+            if args.overwrite:
+                # the pack is shared by every split: drop only this split's rows
+                this_split = {v for c in md.splits[args.split].values() for v in c}
+                carry = [v for v in carry if v not in this_split]
+            n = writer.seed_from(old, carry)
+            print(f"[extract] carried {n} packed versions forward", file=sys.stderr)
+
+        def sink(v, **arrays):
+            writer.add(v, arrays["embeddings"])
+
+        def skip_fn(v):
+            return v in writer
+
+    common = dict(kind=kind, batch_size=args.batch_size, limit=args.limit,
+                  overwrite=args.overwrite, sink=sink, skip_fn=skip_fn)
+    # a failure mid-run drops the temporary pack (the writer's exit) and goes
+    # on; the old pack stays
+    with writer or contextlib.nullcontext():
+        if kind.startswith("hs_last"):
+            language = 0 if kind.endswith("_en") else None
+            decode_fn = _lazy(lambda: eb.make_decoder_embed_fn(
+                config, args.hf_checkpoint, language=language, device=device))
+            result = eb.extract_split_batched_decoder(config, md, args.split, decode_fn,
+                                                      **common)
+        else:
+            if kind == "hs_wealy_concat":
+                embed_fn = _lazy(lambda: eb.make_wealy_embed_fn(
+                    config, args.hf_checkpoint, device=device))
+            else:
+                embed_fn = _lazy(lambda: eb.make_encoder_embed_fn(
+                    config, args.hf_checkpoint, device=device))
+            result = eb.extract_split_batched(config, md, args.split, embed_fn, **common)
+    if writer is not None:
+        packed = writer.close()
+        print(f"[extract] pack closed: {len(packed)} versions in {packed.bin_path.name}",
+              file=sys.stderr)
+    print(json.dumps({"done": len(result["done"]), "skipped": result["skipped"],
+                      "incomplete": result["incomplete"], "throughput": result["throughput"]}))
+    if args.pack:
+        # packing depends only on what is on disk, not on what this run extracted
+        _pack_kind(config, md, kind)
+    return 0 if not result["incomplete"] else 1
+
+
+def _pack_kind(config, md, kind: str) -> None:
+    """Pack one kind over every split (the pack is shared by the splits: a
+    per-split pack would drop the others' rows)."""
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.data.packed_store import pack_from_store
+
+    store = EmbeddingStore(config.path.hidden_states, config.data.dataset_name)
+    versions = sorted(v for s in ("train", "val", "test") for c in md.splits[s].values()
+                      for v in c)
+    packed = pack_from_store(store, versions, f"{kind}.npz", config.path.hidden_states,
+                             dataset_name=config.data.dataset_name)
+    print(json.dumps({"packed": len(packed), "kind": packed.kind}))
+
+
+def cmd_pack(args) -> int:
+    """Pack per-version embedding files into the mmap format
+    (``packed_{dataset}_{kind}.bin`` + manifest beside the per-version
+    tree); one JSON line."""
+    from wealy_tpu_torch.data.dataset import build_clean_dataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.data.packed_store import pack_from_store
+    from wealy_tpu_torch.data.paths import embedding_filename
+
+    config = _load_config(args.config)
+    md, _ = build_clean_dataset(config)
+    store = EmbeddingStore(config.path.hidden_states, config.data.dataset_name)
+    filename = args.kind or embedding_filename(config.data.embedding_type,
+                                               config.data.embedding_format)
+    splits = args.split.split(",") if args.split else ("train", "val", "test")
+    versions = sorted(v for s in splits for c in md.splits[s].values() for v in c)
+    packed = pack_from_store(store, versions, filename, config.path.hidden_states,
+                             dataset_name=config.data.dataset_name)
+    print(json.dumps({"kind": packed.kind, "versions_packed": len(packed),
+                      "versions_requested": len(versions), "bin": str(packed.bin_path)}))
+    return 0 if len(packed) else 1
 
 
 def read_head_checkpoint(checkpoint) -> tuple[dict, Optional[int]]:
@@ -374,6 +546,43 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--check-audio", action="store_true")
     v.set_defaults(fn=cmd_validate_data)
 
+    e = sub.add_parser("extract", help="extract Whisper embeddings to the store")
+    e.add_argument("--config", required=True)
+    e.add_argument("--profile", default=None, metavar="DIR",
+                   help="device trace of the command (ROADMAP item 6; raises here)")
+    e.add_argument("--split", default="train")
+    e.add_argument("--kinds", default="x_concat,hs_last_seq")
+    e.add_argument("--hf-checkpoint", default=None,
+                   help="openai-whisper or HF state-dict file (default: seeded random init)")
+    e.add_argument("--limit", type=int, default=None)
+    e.add_argument("--overwrite", action="store_true")
+    e.add_argument("--batched", action="store_true",
+                   help="cross-song chunk batching: chunks of many songs per device batch "
+                   "(the first kind of --kinds)")
+    e.add_argument("--batch-size", type=int, default=32)
+    e.add_argument("--pack", action="store_true",
+                   help="after extraction, pack the kind into the mmap format (as the pack "
+                   "command)")
+    e.add_argument("--pack-direct", action="store_true",
+                   help="batched extraction writes straight to the mmap pack (no per-version "
+                   "npz); a resume carries the old pack forward. Not for hs_last_all")
+    e.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (ROADMAP item 6; above 1 raises here)")
+    e.add_argument("--self-kv-f8", action="store_true",
+                   help="float8 self-attention KV caches (ROADMAP item 5; raises here)")
+    e.add_argument("--cross-kv-f8", action="store_true",
+                   help="float8 cross-attention K/V (ROADMAP item 5; raises here)")
+    e.add_argument("--quant-int8", action="store_true",
+                   help="W8A8 int8 encoder (ROADMAP item 6; raises here)")
+    _add_device(e)
+    e.set_defaults(fn=cmd_extract)
+
+    pk = sub.add_parser("pack", help="pack per-version embeddings into the mmap format")
+    pk.add_argument("--config", required=True)
+    pk.add_argument("--split", default=None, help="comma list; default all splits")
+    pk.add_argument("--kind", default=None, help="embedding filename override")
+    pk.set_defaults(fn=cmd_pack)
+
     tr = sub.add_parser("train", help="train the head on stored embeddings")
     tr.add_argument("--config", required=True)
     tr.add_argument("--max-steps", type=int, default=None)
@@ -467,7 +676,8 @@ def _add_serving_parsers(sub) -> None:
     q = sub.add_parser("query", help="top-k cover-song search against an index")
     engine_flags(q)
     q.add_argument("--audio", nargs="*", default=None,
-                   help="audio files to embed and search (WAV; other formats through ffmpeg)")
+                   help="audio files to embed and search (WAV, mp3; other formats through "
+                   "ffmpeg)")
     q.add_argument("--query-embeddings", nargs="*", default=None,
                    help="precomputed (T, C) .npz sequences")
     q.set_defaults(fn=cmd_query)

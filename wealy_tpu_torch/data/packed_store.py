@@ -1,6 +1,6 @@
-"""Read side of the packed memory-mapped embedding store, the counterpart of
-``wealy_tpu.data.packed_store.PackedStore`` (packs are written by the JAX
-package's ``pack`` command; the port reads them).
+"""The packed memory-mapped embedding store, the counterpart of
+``wealy_tpu.data.packed_store``: one fp16 binary per embedding kind (shared
+by every split) and a JSON manifest. Either package reads the other's packs.
 
 Layout under ``root``:
   packed_{dataset}_{kind}.bin   C-contiguous (total_rows, dim) bytes
@@ -9,6 +9,13 @@ Layout under ``root``:
 (``packed_{kind}.*`` for packs written before dataset namespacing). A pack
 whose binary does not match its manifest's size and head/tail fingerprint
 is ignored, never read misaligned.
+
+:class:`PackWriter` writes a pack one version at a time (the sink of
+``extract --pack-direct``); :meth:`PackedStore.pack` and
+:func:`pack_from_store` (the ``pack`` command) are built on it. ``close()``
+writes a temporary binary, fsyncs it and renames it into place, then does
+the same for the manifest, so a reader sees the old pack until then and a
+crash between the two renames reads as "no pack".
 """
 
 from __future__ import annotations
@@ -16,12 +23,17 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
+
+
+def _stem(kind: str, dataset_name: Optional[str]) -> str:
+    return f"packed_{dataset_name}_{kind}" if dataset_name else f"packed_{kind}"
 
 
 def _fingerprint(path: Path) -> str:
@@ -42,7 +54,8 @@ class PackedStore:
     def __init__(self, root: str | Path, kind: str, dataset_name: Optional[str] = None):
         self.root = Path(root)
         self.kind = kind.removesuffix(".npz").removesuffix(".pt")
-        stem = f"packed_{dataset_name}_{self.kind}" if dataset_name else f"packed_{self.kind}"
+        self.dataset_name = dataset_name
+        stem = _stem(self.kind, dataset_name)
         self.bin_path = self.root / f"{stem}.bin"
         self.manifest_path = self.root / f"{stem}.json"
         if dataset_name and not self.manifest_path.exists():
@@ -122,3 +135,126 @@ class PackedStore:
         if np.dtype(dtype) == self._dtype:
             return flat.reshape(shape)
         return np.asarray(flat, dtype=dtype).reshape(shape)
+
+    @classmethod
+    def pack(cls, root: str | Path, kind: str, arrays: Iterable[tuple], dtype=np.float16,
+             dataset_name: Optional[str] = None) -> "PackedStore":
+        """Write a pack from ``(version_key, array)`` pairs (any rank >= 1;
+        a 1-D array is stored as one row and loads back 1-D), one version
+        at a time, and return its reader."""
+        with PackWriter(root, kind, dtype=dtype, dataset_name=dataset_name) as writer:
+            for key, arr in arrays:
+                writer.add(key, arr)
+        return writer.close()
+
+
+class PackWriter:
+    """Incremental pack writer: ``add(key, arr)`` appends one version's rows
+    to a temporary binary, ``close()`` makes the pack visible (fsync, then
+    rename the binary, then the manifest). Until ``close()`` readers see
+    the old pack, or none; ``abort()`` drops the temporary file, and so
+    does leaving a ``with PackWriter(...)`` block by an exception (which
+    goes on)."""
+
+    def __init__(self, root: str | Path, kind: str, dtype=np.float16,
+                 dataset_name: Optional[str] = None):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.kind = kind.removesuffix(".npz").removesuffix(".pt")
+        self.dtype = np.dtype(dtype)
+        self.dataset_name = dataset_name
+        self._stem = _stem(self.kind, dataset_name)
+        self._bin_tmp = self.root / f".{self._stem}.bin.tmp"
+        self._f = open(self._bin_tmp, "wb")
+        self._index: Dict[str, list] = {}
+        self._dim: Optional[int] = None
+        self._offset = 0
+
+    def __enter__(self) -> "PackWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is not None:
+            self.abort()
+        return False
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._index
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def add(self, key: str, arr) -> None:
+        """Append one version; a key already added is kept as first written
+        (keys shared between split files pack once)."""
+        if key in self._index:
+            return
+        orig = np.asarray(arr)
+        a = np.ascontiguousarray(np.atleast_2d(orig), dtype=self.dtype)
+        if self._dim is None:
+            self._dim = a.shape[-1]
+        elif a.shape[-1] != self._dim:
+            raise ValueError(
+                f"inconsistent embedding dim for {key!r}: {a.shape[-1]} != {self._dim}"
+            )
+        self._f.write(a.tobytes())
+        # the manifest keeps the original shape; offsets count 2-D rows
+        self._index[key] = [self._offset, *orig.shape]
+        self._offset += int(np.prod(a.shape[:-1], dtype=np.int64))
+
+    def seed_from(self, old: PackedStore, versions) -> int:
+        """Carry already-packed versions forward from ``old`` (the resume of
+        a direct-to-pack extraction), in the old pack's dtype; returns how
+        many were carried."""
+        n = 0
+        for v in versions:
+            if v in old and v not in self._index:
+                self.add(v, old.load(v, dtype=old._dtype))
+                n += 1
+        return n
+
+    def abort(self) -> None:
+        self._f.close()
+        self._bin_tmp.unlink(missing_ok=True)
+
+    def close(self) -> PackedStore:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        bin_final = self.root / f"{self._stem}.bin"
+        os.replace(self._bin_tmp, bin_final)
+        manifest = {
+            "dim": int(self._dim or 0),
+            "dtype": self.dtype.name,
+            "bin_bytes": bin_final.stat().st_size,
+            "fingerprint": _fingerprint(bin_final),
+            "dataset": self.dataset_name,
+            "versions": self._index,
+        }
+        man_tmp = self.root / f".{self._stem}.json.tmp"
+        with open(man_tmp, "w") as f:
+            f.write(json.dumps(manifest))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(man_tmp, self.root / f"{self._stem}.json")
+        return PackedStore(self.root, self.kind, dataset_name=self.dataset_name)
+
+
+def pack_from_store(store, versions, filename: str, root: str | Path,
+                    dataset_name: Optional[str] = None) -> PackedStore:
+    """Pack each version's main array (``embeddings``, else its first) from
+    a per-version :class:`EmbeddingStore`; versions without a file are
+    left out (they stay on the per-version path and in the verifier's
+    missing-work lists), duplicates pack once."""
+
+    def rows():
+        for v in dict.fromkeys(versions):
+            data = store.load(v, filename)
+            if data is None:
+                continue
+            arr = data.get("embeddings")
+            if arr is None:
+                arr = next(iter(data.values()))
+            yield v, arr
+
+    return PackedStore.pack(root, filename, rows(), dataset_name=dataset_name)
