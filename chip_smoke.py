@@ -34,7 +34,15 @@ over 12 audio files of three WAV formats (and one mp3 where libmpg123 and
 libmp3lame exist), ``pack``, a resume that skips every version, and
 ``evaluate`` on the pack, with the native host library built by the
 script, the rows of two songs against ``extract_song`` and the split's
-first four versions at whisper-tiny card against CPU. Every kernel is
+first four versions at whisper-tiny card against CPU. Phase 22 drives the
+CLEWS branch and the fusion models on phase 21's audio and on a fusion
+project at full width (WEALY chunks 512, ``hs_last_seq`` 1280, CLEWS (116,
+2048)): ``extract --kinds hs_clews`` card against CPU, ``train`` /
+``evaluate`` (monolithic, ``--streaming``, ``--test-mode`` through K4) for
+one name a signature with the first losses card against CPU, a fusion
+``index`` and ``query --audio`` (whisper-tiny card against CPU,
+large-v3-turbo p50; K1-K3), and the BatchNorm step of the class-default
+ClewsEncoder card against CPU. Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -722,12 +730,17 @@ def main() -> int:
         audio_launches = audio_query_phase(tmp, dev, reset_counts, counts, smi)
         tally("20 query --audio", audio_launches)
 
-    # 21. extraction over a split through the CLI at large-v3-turbo
+    # 21. extraction over a split through the CLI at large-v3-turbo;
+    # 22. the CLEWS branch and the fusion models, on phase 21's audio
     with tempfile.TemporaryDirectory(prefix="wealy_split_") as tmp:
         tally("21 extract over a split",
               extract_split_phase(tmp, dev, reset_counts, counts, smi, 6 / turbo_s))
+        fusion_launches = fusion_phase(tmp, dev, reset_counts, counts, smi)
+        tally("22 fusion", fusion_launches)
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
+    for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
+        check(fusion_launches[name] > 0, f"phase 22 launched {name} {fusion_launches[name]} times")
     for k in kernels.values():
         check(k["launches"] > 0, f"{k['name']} was launched on no main path {k['launches_by_phase']}")
 
@@ -1919,6 +1932,405 @@ def extract_split_phase(tmp: str, dev, reset_counts, counts, smi: str,
         f"{walls['cpu']:.2f} s); launches {launched}; phase {time.perf_counter() - t0:.1f} s "
         f"| {smi}")
     return launched
+
+
+# phase 22: the fusion names trained and evaluated through the CLI, one a signature
+FUSION_NAMES = ("wealy-clews", "multimodal-cross-attention-residual", "whisper-clews")
+# the query ladder: rung k of a query's clique is the query plus noise at SIGMAS[k] of each
+# array's spread, so that its 10 rungs are its top 10 (the other query's ladder and the
+# random versions below them), spaced wider than the card-vs-CPU difference of a query
+LADDER_SIGMAS = tuple(0.02 * k for k in range(10))
+QUERY_VERSIONS = (2101, 2103)  # phase 21's 35 s 24-bit stereo and 65 s 16-bit files
+
+
+def raises(exc, fn, *args) -> bool:
+    """Whether ``fn(*args)`` raises ``exc``."""
+    with contextlib.suppress(exc):
+        fn(*args)
+        return False
+    return True
+
+
+def min_cos(a: np.ndarray, b: np.ndarray) -> float:
+    return min_row_cos(torch.from_numpy(np.atleast_2d(a)), torch.from_numpy(np.atleast_2d(b)))
+
+
+def write_fusion_project(root: str, dev, ladders: list, seed: int = 22) -> tuple[str, dict]:
+    """A lyric-covers project at full width for the fusion models: 128
+    versions in 32 cliques (train 16 cliques of 4, val 4 of 4, test 12:
+    two query ladders of 10 rungs, eight cliques of 3 and two of 2). Per
+    version ``hs_wealy_concat`` (1-8 chunks x 512), ``hs_last_seq`` (T
+    1000-2700 x 1280, fp16) and the CLEWS trio ((116, 2048), trailing
+    windows invalid), clique members noisy copies of one base; versions
+    1002 (train) and 1100 (test) have no CLEWS files. ``ladders``: per
+    query its multimodal dict, whose rungs make a test clique. Returns
+    (lyric-covers CSV dir, {split: [(version id, clique)]})."""
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    lc, store = os.path.join(root, "lc"), EmbeddingStore(os.path.join(root, "hs"), "lyric-covers")
+    os.makedirs(lc)
+    splits = {"train": [], "val": [], "test": []}
+    layout = [("train", 4)] * 16 + [("val", 4)] * 4 + [("test", 3)] * 8 + [("test", 2)] * 2
+    no_clews = {1002, 1100}
+    vid = 1000
+
+    def noise(shape, scale):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    def save(v, wealy, seq, clews, n_valid):
+        store.save(str(v), "hs_wealy_concat.npz", embeddings=wealy)
+        store.save(str(v), "hs_last_seq.npz", embeddings=seq)
+        if v in no_clews:
+            return
+        mask = np.arange(clews.shape[0]) >= n_valid  # True = invalid
+        store.save(str(v), "hs_clews.npz", embeddings=clews)
+        store.save(str(v), "hs_clews_avg.npz", embeddings=clews[~mask].mean(0))
+        store.save(str(v), "hs_clews_mask.npz", embeddings=mask)
+
+    for c, (split, per) in enumerate(layout):
+        base_w, base_s, base_c = noise((8, 512), 1.0), noise((2700, 1280), 1.0), noise(
+            (116, 2048), 1.0)
+        for _ in range(per):
+            n, T = int(rng.integers(1, 9)), int(rng.integers(1000, 2701))
+            save(vid, (base_w[:n] + noise((n, 512), 0.5)).cpu().numpy(),
+                 (base_s[:T] + noise((T, 1280), 1.0)).half().cpu().numpy(),
+                 (base_c + noise((116, 2048), 0.5)).cpu().numpy(), int(rng.integers(20, 117)))
+            splits[split].append((vid, f"{split}{c}"))
+            vid += 1
+    for q, mm in enumerate(ladders):
+        w, cl = mm["wealy"]["embeddings"], mm["full_clews"]
+        n_valid = int((~mm["clews_mask"]).sum())
+        for k, sigma in enumerate(LADDER_SIGMAS):
+            T = int(rng.integers(1000, 2701))
+            save(vid, w + sigma * w.std() * rng.standard_normal(w.shape, np.float32),
+                 noise((T, 1280), 1.0).half().cpu().numpy(),
+                 cl + sigma * cl.std() * rng.standard_normal(cl.shape, np.float32), n_valid)
+            splits["test"].append((vid, f"ladder{q}"))
+            vid += 1
+    write_split_csvs(lc, splits)
+    return lc, splits
+
+
+def fusion_config(root: str, lc: str, name: str, whisper_size: str = "tiny", tag: str = "",
+                  batch_size: int = 8, max_steps: int = 20) -> str:
+    """A project config for fusion model ``name`` (zdim 512, chunk 1000 at
+    overlap 0.9): train batch ``batch_size`` cliques x 2, lr 1e-4, warm-up 1
+    step, every step's metrics in ``metrics_<name><tag>.jsonl``,
+    checkpoints in ``ckpt_<name><tag>``."""
+    cpath = write_config(os.path.join(root, f"{name}{tag}.json"), lc, os.path.join(root, "hs"),
+                         os.path.join(root, "cache"), name=name, whisper_size=whisper_size)
+    conf = json.load(open(cpath))
+    conf["path"]["checkpoints"] = os.path.join(root, f"ckpt_{name}{tag}")
+    conf["train"] = {"loss": "clews", "batch_size": batch_size, "lr": 1e-4, "warmup_steps": 1,
+                     "max_steps": max_steps, "log_every": 0, "eval_every": 1000,
+                     "checkpoint_every": 1000,
+                     "metrics_jsonl": os.path.join(root, f"metrics_{name}{tag}.jsonl")}
+    with open(cpath, "w") as f:
+        json.dump(conf, f)
+    return cpath
+
+
+def fusion_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: int = 20) -> dict:
+    """22. The CLEWS branch and the fusion models on phase 21's audio
+    project and a fusion project at full width: a. ``extract --kinds
+    hs_clews`` over the 48 versions, card against CPU on the first 4; b.
+    ``train`` / ``evaluate`` (monolithic, ``--streaming``, ``--test-mode``
+    for wealy-clews, ``--checkpoint``) for one name a signature, the first
+    losses and the test-mode MAP card against CPU; c. ``index`` of the
+    fusion project and ``query --audio`` of two WAVs at whisper-tiny (card
+    against CPU) and large-v3-turbo (p50 after a warm-up), and the refusals
+    JAX makes; d. the BatchNorm step of a class-default ClewsEncoder, card
+    against CPU. Returns the launches of a-c."""
+    from wealy_tpu_torch.cli import serve as tserve
+    from wealy_tpu_torch.cli.main import main as cli_main
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.data.multimodal import WealyClewsDataset
+    from wealy_tpu_torch.models import clews_extract
+    from wealy_tpu_torch.train.config import Config
+
+    t_phase = time.perf_counter()
+    lc21, data21 = os.path.join(tmp, "lc"), os.path.join(tmp, "data")
+    wavs = [os.path.join(data21, "LyricCovers", "audio", str(v), f"{v}_audio.mp3")
+            for v in QUERY_VERSIONS]
+    reset_counts()
+
+    # a. extract --kinds hs_clews: the card over the split, the CPU over its first 4
+    builds, real_make = [], clews_extract.make_clews_extractor
+
+    def timed_make(**kw):
+        t = time.perf_counter()
+        out = real_make(**kw)
+        if str(kw.get("device")) != "cpu":
+            torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t)
+        return out
+
+    stores, ex = {}, {}
+    for role, where, limit in (("card", dev.type, None), ("cpu", "cpu", 4)):
+        cpath = write_config(os.path.join(tmp, f"clews_{role}.json"), lc21,
+                             os.path.join(tmp, f"hs_clews_{role}"),
+                             os.path.join(tmp, f"cache_clews_{role}"), data_root=data21)
+        argv = ["extract", "--config", cpath, "--split", "test", "--kinds", "hs_clews",
+                "--device", where] + (["--limit", str(limit)] if limit else [])
+        with mock.patch.object(clews_extract, "make_clews_extractor", timed_make):
+            ex[role] = run_cli(argv)
+        stores[role] = EmbeddingStore(os.path.join(tmp, f"hs_clews_{role}"), "lyric-covers")
+    (card_ex, card_s), (cpu_ex, cpu_s) = ex["card"], ex["cpu"]
+    n21 = sum(1 for _ in open(os.path.join(lc21, "test_no_dup.csv"))) - 1
+    check(card_ex == {"done": n21, "skipped": 0, "failed": 0} and cpu_ex["done"] == 4,
+          f"phase 22a extract hs_clews card {card_ex} CPU {cpu_ex}")
+    songs_s = n21 / (card_s - builds[0])
+    first4 = sorted(v for v in os.listdir(os.path.join(tmp, "hs_clews_cpu")) if v.isdigit())
+    trio = {role: {v: {k: stores[role].load(v, f"{k}.npz")["embeddings"]
+                       for k in ("hs_clews", "hs_clews_avg", "hs_clews_mask")} for v in first4}
+            for role in ("card", "cpu")}
+    card = trio["card"]
+    rows_cos = min(min_cos(card[v]["hs_clews"], trio["cpu"][v]["hs_clews"]) for v in first4)
+    avg_cos = min(min_cos(card[v]["hs_clews_avg"], trio["cpu"][v]["hs_clews_avg"])
+                  for v in first4)
+    masks_equal = all(np.array_equal(card[v]["hs_clews_mask"], trio["cpu"][v]["hs_clews_mask"])
+                      for v in first4)
+    check(len(first4) == 4 and rows_cos >= 0.9999 and avg_cos >= 0.9999 and masks_equal,
+          f"phase 22a hs_clews card vs CPU: rows cos {rows_cos:.7f}, avg {avg_cos:.7f}, masks "
+          f"equal {masks_equal} over {first4}")
+    # the same 4 songs with cuDNN's TF32 convolutions (PyTorch's default; off in this
+    # script), against the CPU's f32 trio: the gap a user's default run carries
+    from wealy_tpu_torch.audio.decode import load_audio
+
+    ext = real_make(device=dev)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        tf32 = {v: ext(load_audio(os.path.join(data21, "LyricCovers", "audio", v,
+                                               f"{v}_audio.mp3"))) for v in first4}
+    tf32_cos = min(min_cos(tf32[v]["hs_clews"], trio["cpu"][v]["hs_clews"]) for v in first4)
+    del ext
+    line_a = (f"a. extract --kinds hs_clews {n21} versions {card_s:.2f} s, build {builds[0]:.2f}"
+              f" s, {songs_s:.2f} songs/s less it; CPU 4 versions {cpu_s:.2f} s; first 4 card vs"
+              f" CPU: rows cos {rows_cos:.7f}, avg cos {avg_cos:.7f}, masks equal {masks_equal};"
+              f" with TF32 convolutions rows cos {tf32_cos:.7f}")
+
+    # the query side at whisper-tiny on the CPU first: its dicts seed the ladders
+    tiny_cpu_cfg = Config.from_file(fusion_config(tmp, lc21, "wealy-clews", tag="_q"))
+    meta = {"sig": "wealy", "wealy_dim": 512}
+    t = time.perf_counter()
+    q_cpu_fn = tserve.make_mm_query_embed_fn(tiny_cpu_cfg, meta, device="cpu")
+    q_cpu = [q_cpu_fn(w) for w in wavs]
+    q_cpu_s = time.perf_counter() - t
+
+    # b. the fusion project; train / evaluate each signature
+    t = time.perf_counter()
+    root = os.path.join(tmp, "fusion")
+    os.makedirs(root)
+    lc, splits = write_fusion_project(root, dev, q_cpu)
+    setup_s = time.perf_counter() - t
+    n_test = len(splits["test"])
+    probe = WealyClewsDataset(Config.from_file(fusion_config(root, lc, "wealy-clews",
+                                                             tag="_probe")), "test")
+    for i, v in enumerate(probe.sampler.versions):
+        if v == "1100":
+            probe.sampler.sample_item(i)
+    check(any(e.startswith("1100:") for e in probe.dummy_log),
+          f"phase 22b the version without CLEWS files logged no dummy: {probe.dummy_log}")
+    import wealy_tpu_torch.train.step as tstep
+
+    train_lines, evals = [], {}
+    make_step = tstep.make_train_step
+    for name in FUSION_NAMES:
+        n_calls = 0
+
+        def make_synced_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def synced(state, batch):
+                nonlocal n_calls
+                out = step(state, batch)
+                n_calls += 1
+                if n_calls in (2, max_steps) and state.device.type == "cuda":
+                    torch.cuda.synchronize()
+                return out
+
+            return synced
+
+        cpath = fusion_config(root, lc, name, max_steps=max_steps)
+        cpu_path = fusion_config(root, lc, name, tag="_cpu", max_steps=3)
+        with mock.patch.object(tstep, "make_train_step", make_synced_step):
+            out, train_s = run_cli(["train", "--config", cpath])
+        cpu_out, cpu_train_s = run_cli(["train", "--config", cpu_path, "--device", "cpu"])
+        recs = [json.loads(r) for r in open(os.path.join(root, f"metrics_{name}.jsonl"))]
+        cpu_recs = [json.loads(r) for r in open(os.path.join(root, f"metrics_{name}_cpu.jsonl"))]
+        steps = [r for r in recs if "loss" in r]
+        rate = (len(steps) - 2) / (steps[-1]["t"] - steps[1]["t"])
+        card3 = np.array([r["loss"] for r in steps[:3]])
+        cpu3 = np.array([r["loss"] for r in cpu_recs if "loss" in r][:3])
+        check(out["final_step"] == max_steps and np.isfinite(out["final_loss"])
+              and len(cpu3) == 3 and np.allclose(card3, cpu3, rtol=1e-4, atol=0),
+              f"phase 22b {name} train {out}: first losses card {card3} CPU {cpu3}")
+        base = ["evaluate", "--config", cpath, "--split", "test", "--checkpoint",
+                os.path.join(root, f"ckpt_{name}")]
+        mono, mono_s = run_cli(base)
+        streamed, _ = run_cli(base + ["--streaming"])
+        check(all(mono[k] == streamed[k] for k in ("MAP", "MR1"))
+              and mono["n_queries"] == n_test,
+              f"phase 22b {name} evaluate monolithic {mono} != --streaming {streamed}")
+        evals[name] = mono
+        train_lines.append(
+            f"{name}: {rate:.2f} steps/s (steps 2-{max_steps}; {train_s:.2f} s), losses 1-3 "
+            f"card {np.round(card3, 6).tolist()} CPU {np.round(cpu3, 6).tolist()} (CPU "
+            f"{cpu_train_s:.2f} s); evaluate --checkpoint MAP {mono['MAP']:.6f} MR1 "
+            f"{mono['MR1']:.3f} {n_test / mono_s:.2f} songs/s, == --streaming")
+    wc = fusion_config(root, lc, "wealy-clews")
+    tm = ["evaluate", "--config", wc, "--split", "test", "--test-mode", "--checkpoint",
+          os.path.join(root, "ckpt_wealy-clews")]
+    k4_before = counts()["bpwr_redux"]
+    tmode, tmode_s = run_cli(tm)
+    k4_test_mode = counts()["bpwr_redux"] - k4_before
+    tmode_stream, _ = run_cli(tm + ["--streaming"])
+    tmode_cpu, _ = run_cli(tm + ["--device", "cpu"])
+    check(k4_test_mode > 0 and tmode["MAP"] == tmode_stream["MAP"]
+          and tmode["MR1"] == tmode_stream["MR1"]
+          and abs(tmode["MAP"] - tmode_cpu["MAP"]) <= 1e-6,
+          f"phase 22b --test-mode {tmode} --streaming {tmode_stream} CPU {tmode_cpu}, K4 "
+          f"launches {k4_test_mode}")
+    line_b = (f"b. {len(splits['train']) + len(splits['val']) + n_test} versions ({setup_s:.1f} s "
+              f"set-up): " + "; ".join(train_lines) + f"; wealy-clews --test-mode MAP "
+              f"{tmode['MAP']:.6f} ({n_test / tmode_s:.2f} songs/s, K4 {k4_test_mode} launches)"
+              f" == --streaming, CPU {tmode_cpu['MAP']:.6f}")
+
+    # c. index the project with wealy-clews, then query two WAVs
+    idx = os.path.join(root, "wealy_clews_index.npz")
+    ix, ix_s = run_cli(["index", "--config", wc, "--split", "test", "--out", idx])
+    check(ix["indexed"] == n_test and ix["fusion"], f"phase 22c index {ix}")
+    tops = {}
+    for where in (dev.type, "cpu"):
+        lines, _ = run_cli_lines(["query", "--config", wc, "--index", idx, "--k", "10",
+                                  "--device", where, "--audio", *wavs])
+        tops[where] = [[r["version_key"] for r in line["results"]] for line in lines]
+    ladder_keys = [[str(v) for v, c in splits["test"] if c == f"ladder{q}"] for q in (0, 1)]
+    check(tops[dev.type] == tops["cpu"] and [t[0] for t in tops["cpu"]] == [k[0] for k in
+                                                                          ladder_keys],
+          f"phase 22c tiny top-10 card {tops[dev.type]} CPU {tops['cpu']} (the ladders "
+          f"{ladder_keys}, rung 0 first)")
+    on_ladder = sum(len(set(t) & set(k)) for t, k in zip(tops["cpu"], ladder_keys))
+    check(on_ladder == 20, f"phase 22c {on_ladder} of the 20 top-10 entries on the queries' "
+          f"own ladders")
+    emb = os.path.join(root, "q.npz")
+    np.savez(emb, embeddings=np.zeros((4, 1280), np.float32))
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        refused_emb = cli_main(["query", "--config", wc, "--index", idx, "--device", dev.type,
+                                "--query-embeddings", emb]) == 2
+        refused_rerank = raises(ValueError, cli_main, [
+            "query", "--config", wc, "--index", idx, "--device", dev.type, "--rerank", "5",
+            "--audio", wavs[0]])
+    check(refused_emb and refused_rerank,
+          f"phase 22c refusals: embedding query {refused_emb}, --rerank {refused_rerank}")
+    turbo_cfg = Config.from_file(fusion_config(root, lc, "wealy-clews",
+                                               whisper_size="large-v3-turbo", tag="_turbo"))
+    t = time.perf_counter()
+    eng = tserve.QueryEngine(turbo_cfg, idx, os.path.join(root, "ckpt_wealy-clews"),
+                             device=dev)
+    eng.search(eng.embed_audio(wavs[0]), k=10)  # the build and a warm-up
+    build_s = time.perf_counter() - t
+    lat = []
+    for _ in range(3):
+        for w in wavs:
+            t = time.perf_counter()
+            out = eng.search(eng.embed_audio(w), k=10)
+            lat.append(time.perf_counter() - t)
+    check(len(out["results"]) == 10 and all(np.isfinite(r["score"]) for r in out["results"]),
+          f"phase 22c turbo query {out}")
+    del eng
+    torch.cuda.empty_cache()
+    launched = counts()
+    check(all(launched[k] > 0 for k in (*EXTRACT_KERNELS, "bpwr_redux")),
+          f"phase 22 launches {launched}")
+    line_c = (f"c. index {n_test} versions {ix_s:.2f} s; query --audio {len(wavs)} WAVs at "
+              f"whisper-tiny: top-10 card == CPU {tops[dev.type] == tops['cpu']}, rung 0 first, "
+              f"{on_ladder} of 20 on the query's own ladder; "
+              f"refused: embedding query {refused_emb}, --rerank {refused_rerank}; "
+              f"large-v3-turbo p50 {np.median(lat) * 1e3:.1f} ms over {len(lat)} queries "
+              f"(35 s and 65 s WAVs; build + warm-up {build_s:.1f} s); CPU query dicts "
+              f"{q_cpu_s:.2f} s")
+
+    # d. the BatchNorm step (not a path with a kernel: outside the launch count)
+    line_d = batch_norm_step(dev)
+    say(f"[22 fusion] {line_a} | {line_b} | {line_c} | {line_d}; launches {launched}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launched
+
+
+def batch_norm_step(dev, steps: int = 3, windows: int = 116) -> str:
+    """22d. A ClewsEncoder at its class-default widths (stem 64, stages 64,
+    128, 256, 512, embed 2048) over ``windows`` windows of (84, 32) CQT,
+    trained ``steps`` steps with ``with_batch_stats`` (clews loss, AdamW
+    at lr 1e-4) on the card and on the CPU from the same seeded weights
+    and batches: losses at rtol 1e-4, and after every step the running
+    variances at rtol 1e-4 and the running means at rtol 1e-4 of |mean| +
+    std; the card's step ms after them."""
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.clews_encoder import ClewsEncoder, seeded_init_
+    from wealy_tpu_torch.train.state import TrainState, make_optimizer
+    from wealy_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(23)
+    batches = [{"emb": np.abs(rng.standard_normal((windows, 1, 84, 32), np.float32)),
+                "labels": np.repeat(np.arange(windows // 2, dtype=np.int32), 2),
+                "ids": np.arange(windows, dtype=np.int32)} for _ in range(steps)]
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        model = seeded_init_(ClewsEncoder(), 0).to(where)
+        state = TrainState(model, make_optimizer(lr=1e-4, warmup_steps=1, max_steps=100))
+        step = make_train_step(model, clews_loss, with_batch_stats=True)
+        losses, stats = [], []
+        for b in batches:
+            state, log = step(state, {k: torch.from_numpy(v).to(where) for k, v in b.items()})
+            losses.append(float(log["loss"]))
+            stats.append({k: v.clone().cpu() for k, v in state.batch_stats.items()})
+        runs["card" if where == dev else "cpu"] = (np.array(losses), stats)
+        if where == dev:
+            feed = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                step(state, feed)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) / steps * 1e3
+    (lc, sc), (lp, sp) = runs["card"], runs["cpu"]
+
+    def worst(i):
+        """The largest element-wise relative difference of step i's running
+        statistics: (value, name, card value, CPU value)."""
+        rel = {k: ((sc[i][k] - sp[i][k]).abs() / sp[i][k].abs().clamp(min=1e-30)) for k in sp[i]}
+        k = max(rel, key=lambda n: float(rel[n].max()))
+        j = int(rel[k].argmax())
+        return float(rel[k].max()), k, float(sc[i][k].flatten()[j]), float(sp[i][k].flatten()[j])
+
+    def within(i) -> bool:
+        """Step i's statistics at rtol 1e-4: each variance to itself, each
+        mean to its |mean| + std, the scale BatchNorm divides it by (a
+        channel's mean cancels to about 1e-5 of its terms, and its f32 sum
+        order shows there element-wise, but not in the normalised output)."""
+        ok = True
+        for k in sp[i]:
+            if k.endswith("running_var"):
+                ok &= bool(((sc[i][k] - sp[i][k]).abs() <= 1e-4 * sp[i][k].abs()).all())
+            else:
+                std = sp[i][k.replace("running_mean", "running_var")].sqrt()
+                ok &= bool(((sc[i][k] - sp[i][k]).abs() <= 1e-4 * (sp[i][k].abs() + std)).all())
+        return ok
+
+    worsts = [worst(i) for i in range(steps)]
+    stats_ok = all(within(i) for i in range(steps)) and len(sp[-1]) == len(sc[-1]) > 0
+    check(np.allclose(lc, lp, rtol=1e-4, atol=0) and stats_ok,
+          f"phase 22d BatchNorm step losses card {lc} CPU {lp}, running statistics within "
+          f"rtol 1e-4 {stats_ok} (element-wise worst by step {worsts})")
+    return (f"d. BatchNorm step, class-default ClewsEncoder over {windows} windows of (84, 32): "
+            f"losses card {np.round(lc, 6).tolist()} CPU {np.round(lp, 6).tolist()}, "
+            f"{len(sp[-1])} running statistics, worst relative difference by step "
+            f"{[f'{w[0]:.3g} ({w[1]}: {w[2]:.6g} vs {w[3]:.6g})' for w in worsts]}; "
+            f"{step_ms:.2f} ms a step on the card")
 
 if __name__ == "__main__":
     sys.exit(main())

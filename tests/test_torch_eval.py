@@ -189,16 +189,30 @@ def test_validate_data_cli_matches_jax(project, capsys):  # noqa: F811
     assert json.loads(capsys.readouterr().out) == want
 
 
-def test_evaluate_cli_refuses_what_is_not_ported(project, tmp_path):  # noqa: F811
-    _, cpath, _ = project
-    with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["evaluate", "--config", str(cpath), "--test-mode", "--device", "cpu"])
+def test_evaluate_cli_refuses_what_is_not_ported(project, tmp_path, capsys):  # noqa: F811
+    """What was refused before the CLEWS/fusion slice now runs as in JAX:
+    ``--test-mode`` leaves the whisper head's evaluate as it is (JAX ignores
+    it for a single-modal model), and a fusion name evaluates (its metrics
+    against JAX are in tests/test_torch_fusion_cli.py)."""
+    root, cpath, _ = project
+    orbax_dir, torch_file = _checkpoints(root)
+    base = ["evaluate", "--config", str(cpath), "--split", "test"]
+    assert jax_main(base + ["--checkpoint", orbax_dir, "--test-mode"]) == 0
+    want = _last_json(capsys)
+    assert tcli.main(base + ["--checkpoint", torch_file, "--test-mode", "--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert tcli.main(base + ["--checkpoint", torch_file, "--device", "cpu"]) == 0
+    assert _last_json(capsys) == got
+    for k in ("MAP", "MR1", "P@10"):
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got, want)
     conf = json.loads(cpath.read_text())
     conf["model"]["name"] = "wealy-clews"
+    conf["path"]["checkpoints"] = str(tmp_path / "none")
     other = tmp_path / "clews.json"
     other.write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["evaluate", "--config", str(other), "--device", "cpu"])
+    assert tcli.main(["evaluate", "--config", str(other), "--device", "cpu"]) == 0
+    fused = _last_json(capsys)
+    assert fused["n_queries"] == 4 and 0.0 < fused["MAP"] <= 1.0
 
 
 def test_auto_streaming_threshold():

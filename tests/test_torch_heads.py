@@ -14,6 +14,7 @@ from wealy_tpu.models.heads import SequenceProjectionHead as JSequenceProjection
 from wealy_tpu.models.layers import ConvBlock as JConvBlock
 from wealy_tpu.models.layers import mean_pool as jmean_pool
 from wealy_tpu.models.registry import MODEL_NAMES as JMODEL_NAMES
+from wealy_tpu.models.registry import build_model as jbuild_model
 from wealy_tpu_torch.models.convert import head_state_dict_from_jax_params
 from wealy_tpu_torch.models.heads import ProjectionHead, SequenceProjectionHead, seeded_init_
 from wealy_tpu_torch.models.layers import ConvBlock, MeanPool, mean_pool
@@ -118,9 +119,12 @@ def test_registry():
     model, sig = build_model("whisper", zdim=32, in_features=24)
     assert sig == "single" and isinstance(model, ProjectionHead)
     assert model.proj.out_features == 32 and model.conv_0.conv.in_channels == 24
+    # the fusion names build, with the JAX registry's signatures
+    # (tests/test_torch_fusion.py holds their outputs against JAX)
     for name in MODEL_NAMES[1:]:
-        with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-            build_model(name)
+        fused, fsig = build_model(name, zdim=32, in_features=24, wealy_features=16,
+                                  clews_features=12)
+        assert fsig == jbuild_model(name)[1] and isinstance(fused, torch.nn.Module)
     with pytest.raises(KeyError):
         build_model("nope")
 

@@ -259,15 +259,20 @@ def test_index_update(serve_project, capsys):  # noqa: F811
     assert "refused" in capsys.readouterr().err
 
 
-def test_fusion_and_shard_wait_for_their_items(indexed, monkeypatch):
+def test_fusion_and_shard_wait_for_their_items(indexed, monkeypatch, capsys):
+    """Fusion serving is ported (ROADMAP item 4; held against JAX in
+    tests/test_torch_fusion_cli.py): a fusion name indexes, and an index
+    whose meta says fusion is refused for a single-modal model, as JAX
+    refuses it. ``--shard`` over several cards still waits for item 6."""
     root, cpath, store, head, jidx, _ = indexed
     conf = json.loads(cpath.read_text())
     conf["model"]["name"] = "whisper-clews"
     other = root / "fusion.json"
     other.write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        tcli.main(["index", "--config", str(other), "--split", "test", "--out",
-                   str(root / "f.npz"), "--device", "cpu"])
+    assert tcli.main(["index", "--config", str(other), "--split", "test", "--out",
+                      str(root / "f.npz"), "--device", "cpu"]) == 0
+    out = _last_json(capsys)
+    assert out["fusion"] is True and out["sets"] is False and out["indexed"] == 4
     with np.load(jidx) as d:
         payload = {k: d[k] for k in d.files}
     meta = json.loads(str(payload["meta"]))
@@ -276,8 +281,10 @@ def test_fusion_and_shard_wait_for_their_items(indexed, monkeypatch):
     fidx = root / "fusion.npz"
     np.savez(fidx, **payload)
     config = Config.from_dict(json.loads(cpath.read_text()))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+    with pytest.raises(ValueError, match="sig mismatch"):
         tserve.QueryEngine(config, str(fidx), head, device="cpu")
+    with pytest.raises(ValueError, match="sig mismatch"):
+        jserve.QueryEngine(JConfig.from_dict(json.loads(cpath.read_text())), str(fidx), None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = tcli.build_parser().parse_args(["query", "--config", str(cpath), "--index", str(jidx),
                                            "--shard", "--device", "cpu"])

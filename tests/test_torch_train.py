@@ -226,8 +226,10 @@ def test_step_arguments_the_port_does_not_take_yet():
         make_train_step(None, clews_loss, grad_accum=3)(state, dict(_head_batch()))
     with pytest.raises(NotImplementedError, match="parallel"):
         make_train_step(None, clews_loss, mesh=object())
-    with pytest.raises(NotImplementedError, match="CLEWS"):
-        make_train_step(None, clews_loss, with_batch_stats=True)
+    # the BatchNorm step is ported (tests/test_torch_clews.py); what it
+    # refuses is what JAX refuses: grad_accum with BatchNorm
+    with pytest.raises(ValueError, match="grad_accum"):
+        make_train_step(None, clews_loss, with_batch_stats=True, grad_accum=2)
     with pytest.raises(NotImplementedError, match="parallel"):
         make_eval_embed_step(None, mesh=object())
 
@@ -582,11 +584,17 @@ def test_train_cli_then_evaluate_reads_its_head(project, capsys):  # noqa: F811
 
 
 @pytest.mark.parametrize("name", ["wealy-clews", "multimodal-concatenation"])
-def test_train_cli_fusion_models_wait_for_their_slice(project, name):  # noqa: F811
+def test_train_cli_fusion_models_wait_for_their_slice(project, name, capsys):  # noqa: F811
+    """The fusion names train through the CLI now (the slice is ported): the
+    configured max_steps, a finite loss and a checkpoint
+    (tests/test_torch_fusion_cli.py holds them against JAX)."""
     tmp, cpath, _ = project
     conf = json.loads(Path(cpath).read_text())
     conf["model"]["name"] = name
+    conf["path"]["checkpoints"] = str(tmp / f"ckpt_{name}")
     p = tmp / f"{name}.json"
     p.write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match="CLEWS/fusion"):
-        tcli.main(["train", "--config", str(p), "--device", "cpu"])
+    assert tcli.main(["train", "--config", str(p), "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["final_step"] == conf["train"]["max_steps"] and np.isfinite(out["final_loss"])
+    assert (tmp / f"ckpt_{name}" / f"ckpt_{out['final_step']}.pt").exists()

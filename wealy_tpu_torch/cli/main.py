@@ -4,11 +4,12 @@
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
     python -m wealy_tpu_torch.cli.main extract --config conf.json --split train \\
-        [--kinds x_concat,hs_last_seq] [--batched [--batch-size N] [--pack-direct]] [--pack]
+        [--kinds x_concat,hs_last_seq|hs_clews] [--batched [--batch-size N] [--pack-direct]] \\
+        [--pack]
     python -m wealy_tpu_torch.cli.main pack --config conf.json [--split test] [--kind F.npz]
     python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
-        [--redux bpwr] [--streaming [--chunk-sets]] [--checkpoint PATH]
+        [--redux bpwr] [--streaming [--chunk-sets]] [--test-mode] [--checkpoint PATH]
     python -m wealy_tpu_torch.cli.main index --config conf.json --split test --out idx.npz
     python -m wealy_tpu_torch.cli.main query --config conf.json --index idx.npz \\
         (--audio A.wav ... | --query-embeddings Q.npz ...) [--rerank R] [--quantize int8]
@@ -20,21 +21,29 @@ card the command exits with an error unless ``--device cpu`` is given).
 ``extract`` writes per-version ``{kind}.npz`` files (one song at a time, or
 chunks of many songs per device batch with ``--batched``) and ``pack``
 writes the packed mmap store; both write the JAX package's formats.
+``extract --kinds hs_clews`` writes the CLEWS trio (``hs_clews``,
+``hs_clews_avg``, ``hs_clews_mask``) of every version through the CQT and
+the window encoder (``models/clews_extract.py``; seeded torch weights).
 ``extract``'s ``--quant-int8``, ``--tp`` above 1 and ``--profile`` (ROADMAP
-item 6), ``--cross-kv-f8`` / ``--self-kv-f8`` (item 5) and the ``hs_clews``
-kind (item 4) are parsed and raise ``NotImplementedError``.
-``train`` trains the ``whisper`` head on stored embeddings with the
-configured loss (clews, ntxent, triplet), AdamW, ``train.grad_accum``, the
-val-split MAP hook every ``train.eval_every`` steps and ``torch.save``
-checkpoints in ``path.checkpoints`` (resumed unless ``--fresh``); it prints
-one JSON line. ``evaluate --checkpoint`` takes a head state-dict file, a
-``train`` checkpoint payload, or a checkpoint directory (its newest step);
-the JAX package's orbax directories need JAX to read. Without one the head
-is initialised from ``torch.Generator`` seed 0
-(``models/heads.py::seeded_init_``), which is not the JAX package's init.
-The serving commands live in :mod:`wealy_tpu_torch.cli.serve`. Fusion
-models and ``--test-mode`` come with the CLEWS/fusion slice (ROADMAP item
-4); ``--profile`` with item 6.
+item 6) and ``--cross-kv-f8`` / ``--self-kv-f8`` (item 5) are parsed and
+raise ``NotImplementedError``.
+``train`` trains the head of ``model.name`` on stored embeddings (all seven
+names: the ``whisper`` head, and the fusion models on the multimodal
+datasets and collates) with the configured loss (clews, ntxent, triplet),
+AdamW, ``train.grad_accum``, the val-split MAP hook every
+``train.eval_every`` steps and ``torch.save`` checkpoints in
+``path.checkpoints`` (resumed unless ``--fresh``); it prints one JSON line.
+``evaluate --checkpoint`` takes a head state-dict file, a ``train``
+checkpoint payload, or a checkpoint directory (its newest step); the JAX
+package's orbax directories need JAX to read. Without one the head is
+initialised from ``torch.Generator`` seed 0 (``models/heads.py::
+seeded_init_``), which is not the JAX package's init; the fusion models,
+as in JAX, fall back to ``path.checkpoints`` first. A fusion model scores
+one fused vector per song by cosine, or with ``--test-mode`` every chunk of
+a song (WEALY chunks, or overlapping whisper windows) as a chunk set
+through ``--redux`` (K4 for ``bpwr``); ``--test-mode`` leaves the
+``whisper`` head's evaluate as it is, as in JAX. The serving commands live
+in :mod:`wealy_tpu_torch.cli.serve`; ``--profile`` comes with item 6.
 """
 
 from __future__ import annotations
@@ -120,7 +129,7 @@ def _refuse_unported(args, kind: str) -> None:
     items = {
         "--profile": (args.profile, 6), "--tp": (args.tp > 1, 6),
         "--quant-int8": (args.quant_int8, 6), "--cross-kv-f8": (args.cross_kv_f8, 5),
-        "--self-kv-f8": (args.self_kv_f8, 5), "the hs_clews kind": (kind == "hs_clews", 4),
+        "--self-kv-f8": (args.self_kv_f8, 5),
     }
     on = [f"{name} (ROADMAP item {item})" for name, (set_, item) in items.items() if set_]
     if on:
@@ -170,6 +179,13 @@ def cmd_extract(args) -> int:
     device = resolve_device(args.device)
     config = _load_config(args.config)
     md, _ = build_clean_dataset(config, check_audio=True)
+    if kind == "hs_clews":
+        from wealy_tpu_torch.models.clews_extract import extract_clews_split
+
+        result = extract_clews_split(config, md, args.split, limit=args.limit,
+                                     overwrite=args.overwrite, device=device)
+        print(json.dumps({k: len(v) for k, v in result.items()}))
+        return 0 if not result["failed"] else 1
     if not args.batched:
         result = extract_split(config, md, args.split, kinds=tuple(kinds),
                                hf_checkpoint=args.hf_checkpoint, limit=args.limit,
@@ -297,20 +313,24 @@ def serving_checkpoint(checkpoint, config) -> Optional[str]:
     from wealy_tpu_torch.train.checkpoint import CheckpointManager
 
     ckpt = checkpoint or config.path.checkpoints
+    if not checkpoint and ckpt and not Path(ckpt).exists():
+        return None  # a checkpoint directory not written yet
     if ckpt and Path(ckpt).is_dir() and CheckpointManager(ckpt).latest_step() is None:
         return None
     return ckpt or None
 
 
-def load_head(config, in_features: int, checkpoint=None, device=None):
-    """The evaluate head for ``config.model`` in eval mode on ``device``,
-    and its training step: weights from ``checkpoint``
-    (:func:`read_head_checkpoint`) or seeded (step None)."""
+def load_head(config, in_features: int = 1280, checkpoint=None, device=None, **widths):
+    """The evaluate head (or fusion model) for ``config.model`` in eval mode
+    on ``device``, and its training step: weights from ``checkpoint``
+    (:func:`read_head_checkpoint`) or seeded (step None). ``widths``: the
+    fusion models' other input widths (``models/registry.py``)."""
     from wealy_tpu_torch.models.heads import seeded_init_
     from wealy_tpu_torch.models.registry import build_model
 
     device = resolve_device(device)
-    model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=in_features)
+    model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=in_features,
+                           **widths)
     step = None
     if checkpoint:
         sd, step = read_head_checkpoint(checkpoint)
@@ -411,26 +431,103 @@ def make_val_eval_fn(config, model, val_ds, val_group: int = 256, device=None):
     return eval_fn
 
 
+def _mm_dataset(config, split: str, sig: str, **kwargs):
+    """The multimodal dataset of a fusion signature."""
+    from wealy_tpu_torch.data.multimodal import WealyClewsDataset, WhisperClewsDataset
+
+    return (WealyClewsDataset if sig == "wealy" else WhisperClewsDataset)(config, split, **kwargs)
+
+
+def _mm_embed(model, model_call, flat: dict, device) -> np.ndarray:
+    """Fused embeddings (f32, host) of a flat multimodal batch."""
+    feed = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in flat.items()
+            if k not in ("labels", "ids")}
+    with torch.no_grad():
+        return model_call(model, feed).float().cpu().numpy()
+
+
+def _mm_songs(config, split: str, sig: str, args, device):
+    """The split's multimodal dataset (one version per item) and the fusion
+    model of ``config`` at the widths of its first item, its weights from
+    ``--checkpoint``, else ``path.checkpoints``, else the seeded init:
+    (dataset, model, model_call)."""
+    from wealy_tpu_torch.cli.serve import _mm_collate_fn, _mm_init_params
+    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+
+    ds = _mm_dataset(config, split, sig, n_per_class=1, seed=0)
+    probe = flatten_multimodal_batch(_mm_collate_fn(config, sig)([ds[0]]))
+    model, model_call, _ = _mm_init_params(config, sig, probe, args.checkpoint, device)
+    return ds, model, model_call
+
+
+def make_val_eval_fn_mm(config, model, model_call, val_ds, sig: str, val_group: int = 256,
+                        device=None):
+    """Fusion-model train-time validation hook: ``eval_fn(state) -> {MAP,
+    MR1}`` over the val split with the current weights, ``val_group``
+    versions at a time through the deterministic multimodal collate, the
+    ranks streamed (``streaming_relevant_ranks``)."""
+    from wealy_tpu_torch.cli.serve import _mm_collate_fn
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+
+    collate = _mm_collate_fn(config, sig)
+    n = len(val_ds)
+    G = max(1, min(val_group, n))
+    device = resolve_device(device)
+
+    def eval_fn(state):
+        zs, labels, ids = [], [], []
+        for g0 in range(0, n, G):
+            flat = flatten_multimodal_batch(collate([val_ds[i] for i in range(g0, min(g0 + G, n))]))
+            zs.append(_mm_embed(model, model_call, flat, device))
+            labels.append(flat["labels"])
+            ids.append(flat["ids"])
+        z, labels, ids = np.concatenate(zs), np.concatenate(labels), np.concatenate(ids)
+        ranks, n_rel = streaming_relevant_ranks(z, z, labels, labels, mode="cos", query_idx=ids,
+                                                corpus_idx=ids, device=device)
+        m = map_from_ranks(ranks, n_rel)
+        return {"MAP": m["MAP"], "MR1": m["MR1"]}
+
+    return eval_fn
+
+
 def cmd_train(args) -> int:
     """Train the head on stored embeddings; one JSON line
     ``{"final_step", "final_loss"}``."""
+    from wealy_tpu_torch.data.collate_factory import create_collate_fn
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.losses import get_loss
-    from wealy_tpu_torch.models.registry import build_model, check_model_name
+    from wealy_tpu_torch.models.registry import build_model, model_signature
     from wealy_tpu_torch.train.checkpoint import CheckpointManager
+    from wealy_tpu_torch.train.multimodal import (
+        build_trainable,
+        flatten_multimodal_batch,
+        input_widths,
+    )
     from wealy_tpu_torch.train.loop import MetricsWriter, fit
     from wealy_tpu_torch.train.state import create_train_state, make_optimizer
     from wealy_tpu_torch.train.step import make_train_step
 
     device = resolve_device(args.device)
     config = _load_config(args.config)
-    check_model_name(config.model.name)
+    sig = model_signature(config.model.name)
     torch.autograd.set_detect_anomaly(bool(config.train.debug_nans))
     loss_fn = get_loss(config.train.loss, **(config.train.loss_params or {}))
-    ds = EmbeddingDataset(config, "train", seed=config.train.seed)
-    _, versions = ds[0]
-    emb_dim = versions[0][1].shape[-1]
-    model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=emb_dim)
+    model_call = make_batch = None
+    if sig == "single":
+        ds = EmbeddingDataset(config, "train", seed=config.train.seed)
+        _, versions = ds[0]
+        emb_dim = versions[0][1].shape[-1]
+        model, _ = build_model(config.model.name, zdim=config.model.zdim, in_features=emb_dim)
+    else:
+        ds = _mm_dataset(config, "train", sig, seed=config.train.seed)
+        probe = flatten_multimodal_batch(create_collate_fn(config)([ds[0], ds[1]]))
+        model, _, model_call = build_trainable(config.model.name, zdim=config.model.zdim,
+                                               **input_widths(probe, sig))
+
+        def make_batch(items, brng):
+            # this batch's chunk draws come from its (seed, epoch, batch) stream
+            return flatten_multimodal_batch(create_collate_fn(config, rng=brng)(items))
     state = create_train_state(
         model.to(device),
         tx=make_optimizer(lr=config.train.lr, weight_decay=config.train.weight_decay,
@@ -438,7 +535,8 @@ def cmd_train(args) -> int:
                           max_steps=config.train.max_steps),
         seed=config.train.seed,
     )
-    step = make_train_step(model, loss_fn, grad_accum=config.train.grad_accum)
+    step = make_train_step(model, loss_fn, model_call=model_call,
+                           grad_accum=config.train.grad_accum)
     ckpt = CheckpointManager(config.path.checkpoints) if config.path.checkpoints else None
     start_epoch = start_batch = 0
     if ckpt is not None and ckpt.latest_step() is not None and not args.fresh:
@@ -451,10 +549,16 @@ def cmd_train(args) -> int:
         print(f"resumed full state from step {state.step} (epoch {start_epoch}, batch "
               f"{start_batch})", file=sys.stderr)
     eval_fn = None
-    val_ds = EmbeddingDataset(config, "val", seed=0)
-    if len(val_ds) >= 4:
-        val_group = int(config.train.val_group) or max(4, int(config.train.batch_size))
-        eval_fn = make_val_eval_fn(config, model, val_ds, val_group=val_group, device=device)
+    val_group = int(config.train.val_group) or max(4, int(config.train.batch_size))
+    if sig == "single":
+        val_ds = EmbeddingDataset(config, "val", seed=0)
+        if len(val_ds) >= 4:
+            eval_fn = make_val_eval_fn(config, model, val_ds, val_group=val_group, device=device)
+    else:
+        val_ds = _mm_dataset(config, "val", sig, n_per_class=1, seed=0)
+        if len(val_ds) >= 4:
+            eval_fn = make_val_eval_fn_mm(config, model, model_call, val_ds, sig,
+                                          val_group=val_group, device=device)
     writer = MetricsWriter(log_every=config.train.log_every,
                            jsonl_path=config.train.metrics_jsonl or None)
     state, writer = fit(
@@ -470,6 +574,7 @@ def cmd_train(args) -> int:
         data_seed=config.train.seed,
         start_epoch=start_epoch,
         start_batch=start_batch,
+        make_batch=make_batch,
     )
     writer.close()
     # the last record may be a val_* entry: report the last train loss
@@ -481,16 +586,16 @@ def cmd_train(args) -> int:
 def evaluate(args) -> dict:
     """The ``evaluate`` command's metrics (MAP, MR1, P@10, n_queries)."""
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
-    from wealy_tpu_torch.eval.retrieval import evaluate_retrieval
+    from wealy_tpu_torch.models.registry import model_signature
     from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
 
-    if args.test_mode:
-        raise NotImplementedError(
-            "--test-mode embeds the chunks of fusion models; it comes with the CLEWS/fusion "
-            "slice of the port"
-        )
     device = resolve_device(args.device)
     config = _load_config(args.config)
+    sig = model_signature(config.model.name)
+    if sig != "single":
+        if args.test_mode:
+            return _evaluate_mm_test_mode(args, config, sig, device)
+        return _evaluate_multimodal(args, config, sig, device)
     ds = EmbeddingDataset(config, args.split, seed=0)
     versions = list(ds.sampler.versions)
     _auto_streaming(args, len(versions), exact_chunk_sets=True)
@@ -508,21 +613,126 @@ def evaluate(args) -> dict:
             vecs, vecs, labels, labels, mode="cos", query_idx=ids, corpus_idx=ids, device=device
         )
         return map_from_ranks(ranks, n_rel, topk=(10,))
+    # exact chunk-set ranking; streamed, the transient device tensor is one
+    # (block, block, s, s) distance block
     sets, set_mask = _pad_chunk_sets(all_sets, all_masks, len(labels))
+    return _chunk_set_metrics(args, sets, set_mask, labels, ids, device)
+
+
+def _chunk_set_metrics(args, sets, set_mask, labels, ids, device) -> dict:
+    """MAP/MR1/P@10 of chunk sets through ``--redux``: one (S, S) redux, or
+    with ``--streaming`` block-streamed ranks (no (S, S) matrix)."""
+    from wealy_tpu_torch.eval.retrieval import evaluate_retrieval
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+
     if args.streaming:
-        # exact chunk-set ranking streamed in blocks: the transient device
-        # tensor is one (block, block, s, s) distance block
         blk = _set_block_size(sets.shape[1])
         ranks, n_rel = streaming_relevant_ranks(
-            sets, sets, labels, labels, mode="cos", redux=args.redux,
-            query_mask=set_mask, corpus_mask=set_mask, block_size=blk, query_block=blk,
-            query_idx=ids, corpus_idx=ids, device=device,
+            sets, sets, labels, labels, mode="cos", redux=args.redux, query_mask=set_mask,
+            corpus_mask=set_mask, block_size=blk, query_block=blk, query_idx=ids,
+            corpus_idx=ids, device=device,
         )
         return map_from_ranks(ranks, n_rel, topk=(10,))
     metrics = evaluate_retrieval(sets, set_mask, labels, version_ids=ids, redux=args.redux,
                                  device=device)
     metrics.pop("_dist")
     return metrics
+
+
+def _evaluate_multimodal(args, config, sig: str, device) -> dict:
+    """Fusion-model evaluation: one fused embedding per song (deterministic
+    collate, one version per item, fp16 round trip as in training), all
+    pairs by cosine; ``--song-group`` songs are collated and embedded at a
+    time, and ``--streaming`` streams the ranks."""
+    from wealy_tpu_torch.cli.serve import _mm_collate_fn
+    from wealy_tpu_torch.eval.wealy import evaluate_song_embeddings
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+
+    ds, model, model_call = _mm_songs(config, args.split, sig, args, device)
+    _auto_streaming(args, len(ds), exact_chunk_sets=False)
+    collate = _mm_collate_fn(config, sig)
+    n = len(ds)
+    G = max(1, min(args.song_group, n))
+    zs, labels, ids = [], [], []
+    for g0 in range(0, n, G):
+        flat = flatten_multimodal_batch(collate([ds[i] for i in range(g0, min(g0 + G, n))]))
+        zs.append(_mm_embed(model, model_call, flat, device))
+        labels.append(flat["labels"])
+        ids.append(flat["ids"])
+    z, labels, ids = np.concatenate(zs), np.concatenate(labels), np.concatenate(ids)
+    if args.streaming:
+        ranks, n_rel = streaming_relevant_ranks(z, z, labels, labels, mode="cos", query_idx=ids,
+                                                corpus_idx=ids, device=device)
+        return map_from_ranks(ranks, n_rel, topk=(10,))
+    return evaluate_song_embeddings(z, labels, version_ids=ids, device=device)
+
+
+def _song_chunks(sig: str, mm: dict, L: int, stride: int):
+    """A song's test-mode chunks and their (n, L) or (n, 1) valid masks:
+    every WEALY chunk, or the overlapping whisper windows (windows fully
+    inside the sequence, zero-copy views; a sequence shorter than one
+    window gives one zero-padded chunk)."""
+    if sig == "wealy":
+        chunks = np.atleast_2d(np.asarray(mm["wealy"]["embeddings"], np.float32))
+        return chunks, np.ones((chunks.shape[0], 1), bool)
+    seq = np.asarray(mm["whisper_seq"], np.float32)
+    T, C = seq.shape
+    if T <= L:
+        w, v = np.zeros((1, L, C), np.float32), np.zeros((1, L), bool)
+        w[0, :T], v[0, :T] = seq, True
+        return w, v
+    chunks = np.lib.stride_tricks.sliding_window_view(seq, L, axis=0)[::stride].transpose(0, 2, 1)
+    return chunks, np.ones((chunks.shape[0], L), bool)
+
+
+def _evaluate_mm_test_mode(args, config, sig: str, device) -> dict:
+    """Fusion-model test mode: ALL chunks of every song (the precomputed
+    WEALY chunks, or overlapping whisper windows), each embedded with the
+    song's CLEWS context in f32 (no fp16 round trip, as in JAX), and the
+    per-song z chunk sets scored through ``--redux`` (K4 for ``bpwr``).
+    Songs go in ``--song-group`` groups and chunks in ``--encode-slab``
+    slabs, so host memory holds one group's sequences plus the z sets."""
+    ds, model, model_call = _mm_songs(config, args.split, sig, args, device)
+    _auto_streaming(args, len(ds), exact_chunk_sets=False)
+    L = config.data.chunk_size
+    stride = max(1, L - int(L * config.data.overlap_percentage))
+    slab, song_group = max(1, args.encode_slab), max(1, args.song_group)
+    z_sets, labels, ids = [], [], []
+    for g0 in range(0, len(ds), song_group):
+        songs = []
+        for i in range(g0, min(g0 + song_group, len(ds))):
+            label, [(vid, mm)] = ds[i]
+            chunks, valid = _song_chunks(sig, mm, L, stride)
+            songs.append((chunks, valid, np.asarray(mm["full_clews"], np.float32),
+                          np.asarray(mm["clews_mask"], bool)))
+            labels.append(label)
+            ids.append(vid)
+        refs = [(si, ci) for si, s in enumerate(songs) for ci in range(s[0].shape[0])]
+        zs = []
+        for s0 in range(0, len(refs), slab):
+            batch = refs[s0 : s0 + slab]
+            w = np.stack([songs[si][0][ci] for si, ci in batch])
+            feed = {"full_clews": np.stack([songs[si][2] for si, _ in batch]),
+                    "clews_mask": np.stack([songs[si][3] for si, _ in batch])}
+            if sig == "wealy":
+                feed["wealy"] = w
+            else:
+                feed["whisper_seq"] = w
+                feed["whisper_mask"] = ~np.stack([songs[si][1][ci] for si, ci in batch])
+            zs.append(_mm_embed(model, model_call, feed, device))
+        z = np.concatenate(zs)
+        row = 0
+        for chunks, *_ in songs:
+            z_sets.append(z[row : row + chunks.shape[0]])
+            row += chunks.shape[0]
+    max_chunks = max(zc.shape[0] for zc in z_sets)
+    sets = np.zeros((len(z_sets), max_chunks, z_sets[0].shape[1]), np.float32)
+    mask = np.zeros((len(z_sets), max_chunks), bool)
+    for i, zc in enumerate(z_sets):
+        sets[i, : zc.shape[0]] = zc
+        mask[i, : zc.shape[0]] = True
+    return _chunk_set_metrics(args, sets, mask, np.asarray(labels), np.asarray(ids), device)
 
 
 def cmd_evaluate(args) -> int:
@@ -610,7 +820,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--encode-slab", type=int, default=256,
                     help="chunks per head call (fixed shape)")
     ev.add_argument("--test-mode", action="store_true",
-                    help="fusion models: embed ALL chunks per song (not in this port yet)")
+                    help="fusion models: embed ALL chunks per song, scored as chunk sets")
     ev.add_argument(
         "--chunk-sets", action="store_true",
         help="with --streaming: exact chunk-set --redux ranking streamed in blocks instead "
@@ -667,7 +877,8 @@ def _add_serving_parsers(sub) -> None:
                             help="shard the resident corpus over the local cards (one card "
                             "only in this port)")
         parser.add_argument("--wealy-head-checkpoint", default=None,
-                            help="fusion (wealy-clews) indexes only: not in this port")
+                            help="fusion indexes of the wealy signature: the WEALY head that "
+                            "embeds an audio query's chunks (default: the seeded head)")
         parser.add_argument("--quantize", choices=["int8"], default=None,
                             help="int8 resident corpus (per-chunk absmax scales, dequantized "
                             "per block): half the device bytes")

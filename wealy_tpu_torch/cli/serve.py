@@ -1,6 +1,6 @@
-"""Serving surface, the counterpart of ``wealy_tpu.cli.serve`` for the
-single-modal (``whisper``) family: build a retrieval index of a split, then
-answer cover-song queries against it.
+"""Serving surface, the counterpart of ``wealy_tpu.cli.serve``: build a
+retrieval index of a split, then answer cover-song queries against it, for
+all seven ``conf.model.name`` values.
 
 - ``index``: every song of a split through the head (collate_overlapping
   -> slabbed head -> chunk-set regroup, as ``evaluate``) into a
@@ -24,8 +24,18 @@ of 64 only to keep its jit shapes few; torch does not recompile, so the
 port scores the batch as it comes (padded rows are mask-excluded there, so
 the rankings are the same).
 
-Not in this slice: fusion indexes and fusion models (ROADMAP item 4), and
-``--shard`` over more than one card (item 6).
+Fusion models (wealy-clews, whisper-clews, multimodal-*) index one fused
+vector per song through the deterministic multimodal collate (the fp16
+round trip included, as ``evaluate``) and score by cosine. A fusion query
+is raw audio only, both modalities computed cold: the CLEWS trio through
+the CQT and window-encoder extractor that ``extract --kinds hs_clews`` runs
+(``models/clews_extract.py``), and the Whisper side through the WEALY head
+(``--wealy-head-checkpoint``, else the seeded head) for the ``wealy``
+signature or the greedy decode's ``hs_last_seq`` for the two-stream one. As
+in JAX, a fusion engine refuses ``--rerank``, ``--quantize`` and
+embedding queries.
+
+Not in this slice: ``--shard`` over more than one card (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -43,17 +53,8 @@ import torch
 from wealy_tpu_torch import resolve_device
 
 INDEX_VERSION = 1
-_FUSION = (
-    "fusion serving (fusion model names and fusion indexes) comes with the CLEWS/fusion "
-    "slice (ROADMAP item 4)"
-)
-
-
-def _single_modal(name: str) -> None:
-    from wealy_tpu_torch.models.registry import MODEL_NAMES
-
-    if name != "whisper" and name in MODEL_NAMES:
-        raise NotImplementedError(f"model {name!r}: {_FUSION}")
+# the meta fields the raw-audio embed fn of an engine depends on
+_EMBED_META = ("fusion", "sig", "wealy_dim", "emb_dim", "chunk_size")
 
 
 def _load_head_params(config, checkpoint: Optional[str], emb_dim: int, device):
@@ -64,17 +65,128 @@ def _load_head_params(config, checkpoint: Optional[str], emb_dim: int, device):
     return load_head(config, emb_dim, serving_checkpoint(checkpoint, config), device)
 
 
+def _mm_collate_fn(config, sig: str):
+    """The deterministic multimodal collate of a fusion signature (first
+    WEALY chunk / first whisper window), as the fusion evaluate."""
+    from wealy_tpu_torch.data.collate_factory import collate_wealy_clews, collate_whisper_clews
+
+    def collate(items):
+        if sig == "wealy":
+            return collate_wealy_clews(items, wealy_mode="deterministic")
+        return collate_whisper_clews(items, chunk_size=config.data.chunk_size,
+                                     use_random_chunks=False)
+
+    return collate
+
+
+def _mm_init_params(config, sig: str, flat: dict, checkpoint, device):
+    """The fusion model at the widths of the flat probe batch ``flat``, in
+    eval mode on ``device``, its weights restored from ``checkpoint``, else
+    ``path.checkpoints`` when that holds a payload, else the seeded init
+    (the JAX package's ``_mm_restore_params`` then ``_mm_init_params``):
+    (model, model_call, checkpoint step)."""
+    from wealy_tpu_torch.cli.main import load_head, serving_checkpoint
+    from wealy_tpu_torch.train.multimodal import input_widths, make_model_call
+
+    model, step = load_head(config, checkpoint=serving_checkpoint(checkpoint, config),
+                            device=device, **input_widths(flat, sig))
+    return model, make_model_call(config.model.name, model, sig), step
+
+
+def _index_fusion(args, config, sig: str, device) -> int:
+    """Fusion-family index: one fused vector per song through the
+    deterministic multimodal collate, scored by cosine (the fusion evaluate
+    semantics). ``--update`` carries forward the vectors of versions still
+    in the split and embeds only the new ones."""
+    from wealy_tpu_torch.cli.main import _mm_dataset, _mm_embed
+    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+    from wealy_tpu_torch.utils.hostmem import trim_host_heap
+
+    ds = _mm_dataset(config, args.split, sig, n_per_class=1, seed=0, refresh_cache=args.update)
+    collate = _mm_collate_fn(config, sig)
+    n = len(ds)
+    if n == 0:
+        print(f"[index] split {args.split!r} is empty", file=sys.stderr)
+        return 2
+    probe = flatten_multimodal_batch(collate([ds[0], ds[min(1, n - 1)]]))
+    model, model_call, step = _mm_init_params(config, sig, probe, args.checkpoint, device)
+    versions = list(ds.sampler.versions)
+    out = Path(args.out)
+    carry_keys, carry_vecs = [], None
+    new_versions = versions
+    if args.update and out.exists():
+        with np.load(out, allow_pickle=False) as old:
+            old_meta = json.loads(str(old["meta"]))
+            want = {
+                "model": config.model.name, "zdim": int(config.model.zdim), "split": args.split,
+                "sig": sig, "fusion": True, "checkpoint_step": step,
+                "index_version": INDEX_VERSION,
+            }
+            stale = [k for k, v in want.items() if old_meta.get(k) != v]
+            if stale:
+                print(f"[index] --update refused: existing index differs on {stale}; rebuild "
+                      "without --update", file=sys.stderr)
+                return 2
+            in_split = set(versions)
+            keep = np.asarray([str(k) in in_split for k in old["version_keys"]], bool)
+            carry_keys = [str(k) for k, m in zip(old["version_keys"], keep) if m]
+            carry_vecs = old["vecs"][keep]
+        carried = set(carry_keys)
+        new_versions = [v for v in versions if v not in carried]
+        print(f"[index] --update: {len(carry_keys)} carried, {int((~keep).sum())} dropped, "
+              f"{len(new_versions)} new", file=sys.stderr)
+
+    # no larger groups than the work: an --update of two songs collates two
+    G = max(1, min(args.song_group, max(1, len(new_versions))))
+    index_of = {v: i for i, v in enumerate(versions)}
+    zs = [carry_vecs] if carry_vecs is not None and len(carry_vecs) else []
+    for g0 in range(0, len(new_versions), G):
+        flat = flatten_multimodal_batch(collate([ds[index_of[v]]
+                                                 for v in new_versions[g0 : g0 + G]]))
+        zs.append(_mm_embed(model, model_call, flat, device))
+        if (g0 // G) % 32 == 31:
+            trim_host_heap()
+    versions = carry_keys + new_versions
+    meta = {
+        "index_version": INDEX_VERSION, "model": config.model.name,
+        "zdim": int(config.model.zdim), "split": args.split, "checkpoint_step": step,
+        "chunk_size": config.data.chunk_size, "overlap": float(config.data.overlap_percentage),
+        "has_sets": False, "fusion": True, "sig": sig,
+        "wealy_dim": int(probe["wealy"].shape[-1]) if sig == "wealy" else None,
+        "emb_dim": int(probe["whisper_seq"].shape[-1]) if sig != "wealy" else None,
+        "clews_shape": [int(d) for d in probe["full_clews"].shape[1:]],
+    }
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(
+        out,
+        version_keys=np.asarray(versions),
+        cliques=np.asarray([ds.sampler.clique_of[v] for v in versions]),
+        labels=np.asarray([ds.sampler.labels[ds.sampler.clique_of[v]] for v in versions],
+                          np.int32),
+        ids=np.asarray([int(ds.metadata.info[v]["id"]) for v in versions], np.int64),
+        vecs=np.concatenate(zs, axis=0),
+        meta=np.asarray(json.dumps(meta)),
+    )
+    print(json.dumps({"indexed": n, "new": len(new_versions), "out": str(out),
+                      "zdim": int(config.model.zdim), "sets": False, "fusion": True,
+                      "checkpoint_step": step}))
+    return 0
+
+
 def cmd_index(args) -> int:
     """Embed a split into a serving index file."""
     from wealy_tpu_torch.cli.main import _load_config
     from wealy_tpu_torch.data.chunking import collate_overlapping
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.eval.retrieval import regroup_chunks, slabbed_apply
+    from wealy_tpu_torch.models.registry import model_signature
     from wealy_tpu_torch.utils.hostmem import trim_host_heap
 
     device = resolve_device(args.device)
     config = _load_config(args.config)
-    _single_modal(config.model.name)
+    sig = model_signature(config.model.name)
+    if sig != "single":
+        return _index_fusion(args, config, sig, device)
     # --update must see source-CSV changes: bypass the processed-metadata cache
     ds = EmbeddingDataset(config, args.split, seed=0, refresh_cache=args.update)
     versions = list(ds.sampler.versions)
@@ -242,9 +354,59 @@ def embed_query_audio(config, audio_path: str, device=None) -> np.ndarray:
     return make_query_embed_fn(config, device)(audio_path)
 
 
+def make_mm_query_embed_fn(config, meta: dict, wealy_head_checkpoint=None, device=None):
+    """Build once: audio path -> the multimodal per-song dict the fusion
+    collates take (``data/multimodal.py``'s item), both modalities computed
+    cold on ``device``:
+
+    - the CLEWS trio through the default extractor of ``extract --kinds
+      hs_clews`` (``models/clews_extract.py``), so the query lands in the
+      indexed hs_clews space;
+    - ``wealy`` signature: mel -> encoder -> the WEALY ProjectionHead at the
+      index's ``wealy_dim`` (K1-K3; head weights from
+      ``wealy_head_checkpoint``, else the seeded head, as ``extract --kinds
+      hs_wealy_concat``; never the fusion checkpoint); ``two_stream``: the
+      greedy decode's flattened ``hs_last_seq``.
+    """
+    from wealy_tpu_torch.audio.decode import load_audio
+    from wealy_tpu_torch.cli import extract_batched as eb
+    from wealy_tpu_torch.models.clews_extract import make_clews_extractor
+    from wealy_tpu_torch.models.whisper.extract import chunk_waveform, flatten_decoder_sequence
+    from wealy_tpu_torch.train.config import Config
+
+    device = resolve_device(device)
+    sig = meta["sig"]
+    clews = make_clews_extractor(device=device)
+    if sig == "wealy":
+        cfg_w = Config.from_dict(config.to_dict())
+        cfg_w.model.zdim = int(meta["wealy_dim"])
+        cfg_w.path.checkpoints = ""  # the fusion checkpoint is not a WEALY head
+        embed_fn = eb.make_wealy_embed_fn(cfg_w, head_checkpoint=wealy_head_checkpoint,
+                                          device=device)
+    else:
+        decode_fn = eb.make_decoder_embed_fn(config, language=None, device=device)
+
+    def run(audio_path: str) -> dict:
+        audio = load_audio(audio_path)
+        trio = clews(audio)
+        chunks = chunk_waveform(audio)
+        if sig == "wealy":
+            whisper = {"wealy": {"embeddings": embed_fn(chunks).float().cpu().numpy()}}
+        else:
+            hidden, lengths = decode_fn(chunks)
+            seq = flatten_decoder_sequence(hidden.float().cpu().numpy(), lengths.cpu().numpy())
+            whisper = {"whisper_seq": np.asarray(seq, np.float32)}
+        return {**whisper, "full_clews": trio["hs_clews"], "avg_clews": trio["hs_clews_avg"],
+                "clews_mask": trio["hs_clews_mask"]}
+
+    return run
+
+
 def read_index_meta(index_path: str, config) -> dict:
     """The index file's meta, checked against ``config``: the index version,
-    the model and zdim, and no fusion index."""
+    the model and zdim, and a fusion index for a fusion model only."""
+    from wealy_tpu_torch.models.registry import model_signature
+
     with np.load(index_path, allow_pickle=False) as idx:
         meta = json.loads(str(idx["meta"]))
     if meta.get("index_version") != INDEX_VERSION:
@@ -254,9 +416,13 @@ def read_index_meta(index_path: str, config) -> dict:
             f"index was built for model={meta['model']} zdim={meta['zdim']}; "
             f"config says {config.model.name}/{config.model.zdim}"
         )
-    if meta.get("fusion"):
-        raise NotImplementedError(f"fusion index: {_FUSION}")
-    _single_modal(config.model.name)
+    sig = model_signature(config.model.name)
+    if (sig != "single") != bool(meta.get("fusion")):
+        raise ValueError(
+            f"index sig mismatch: index fusion={bool(meta.get('fusion'))} but model "
+            f"{config.model.name!r} is {'fusion' if sig != 'single' else 'single-modal'}")
+    if meta.get("fusion") and meta["sig"] != sig:
+        raise ValueError(f"index built for sig={meta['sig']!r}; model resolves to {sig!r}")
     return meta
 
 
@@ -268,12 +434,11 @@ class QueryEngine:
                  redux: str = "bpwr", block_size: int = 512, resident: bool = True,
                  quantize: Optional[str] = None, wealy_head_checkpoint: Optional[str] = None,
                  device=None):
-        if wealy_head_checkpoint:
-            raise NotImplementedError(f"wealy_head_checkpoint: {_FUSION}")
         self.config = config
         self.redux = redux
         self.block_size = max(1, block_size)
         self.device = resolve_device(device)
+        self._wealy_head_checkpoint = wealy_head_checkpoint
         self.meta = read_index_meta(index_path, config)
         with np.load(index_path, allow_pickle=False) as idx:
             self.keys = [str(k) for k in idx["version_keys"]]
@@ -284,11 +449,23 @@ class QueryEngine:
         # survives the int8 resident path dropping the host f16 copy
         self._has_sets = self.sets is not None
         self.L = self.meta["chunk_size"]
-        self._head, self.checkpoint_step = _load_head_params(
-            config, checkpoint, int(self.meta["emb_dim"]), self.device)
         self._vn = self.vecs / np.maximum(np.linalg.norm(self.vecs, axis=-1, keepdims=True), 1e-9)
         self._audio_fn = None  # built on the first audio query, then reused
         self._audio_lock = threading.Lock()  # request threads race to build it
+        self._sets_dev = self._mask_dev = self._scale_dev = None
+        self.fusion = bool(self.meta.get("fusion"))
+        if self.fusion:
+            if quantize:
+                raise ValueError("quantize applies to chunk-set indexes; fusion indexes hold one "
+                                 "vector per song")
+            sig = self.meta["sig"]
+            self._collate_mm = _mm_collate_fn(config, sig)
+            self._mm_model, self._mm_call, self.checkpoint_step = _mm_init_params(
+                config, sig, self._mm_probe_flat(), checkpoint, self.device)
+            self._resident = self._quantized = False
+            return
+        self._head, self.checkpoint_step = _load_head_params(
+            config, checkpoint, int(self.meta["emb_dim"]), self.device)
         self._resident = bool(resident) and self._has_sets
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize={quantize!r}")
@@ -297,7 +474,6 @@ class QueryEngine:
             raise ValueError("quantize=int8 requires the device-resident corpus (drop "
                              "--no-resident; pooled-only indexes have no chunk sets)")
         self._quantized = self._resident and quantize == "int8"
-        self._sets_dev = self._mask_dev = self._scale_dev = None
         if self._resident:
             sets, scale = self.sets, None
             if self._quantized:
@@ -353,12 +529,27 @@ class QueryEngine:
             for i in range(q.shape[0])
         ])
 
+    def _mm_probe_flat(self) -> dict:
+        """A synthetic flat batch at the index's recorded widths (the fusion
+        model's widths when no checkpoint gives them)."""
+        Lc, Cc = self.meta["clews_shape"]
+        flat = {"full_clews": np.zeros((1, Lc, Cc), np.float32)}
+        if self.meta["sig"] == "wealy":
+            flat["wealy"] = np.zeros((1, self.meta["wealy_dim"]), np.float32)
+        else:
+            flat["whisper_seq"] = np.zeros((1, self.L, self.meta["emb_dim"]), np.float32)
+        return flat
+
     @torch.inference_mode()
-    def embed_audio(self, audio_path: str) -> np.ndarray:
-        """Audio file -> (T, C) query sequence through a cached embed fn."""
+    def embed_audio(self, audio_path: str):
+        """Audio file -> the query payload through a cached embed fn: a (T, C)
+        sequence, or for a fusion index the multimodal per-song dict."""
         with self._audio_lock:
             if self._audio_fn is None:
-                self._audio_fn = make_query_embed_fn(self.config, self.device)
+                self._audio_fn = (
+                    make_mm_query_embed_fn(self.config, self.meta, self._wealy_head_checkpoint,
+                                           self.device)
+                    if self.fusion else make_query_embed_fn(self.config, self.device))
         return self._audio_fn(audio_path)
 
     def search(self, seq: np.ndarray, k: int = 10, pooled: bool = False, rerank: int = 0):
@@ -393,6 +584,12 @@ class QueryEngine:
         the whole batch scored together (one host sync for the scores)."""
         from wealy_tpu_torch.eval.retrieval import song_distance_matrix
 
+        if self.fusion:
+            if rerank:
+                # a chunk-set option: an error, not a silently ignored flag
+                raise ValueError("rerank applies to chunk-set indexes; fusion scoring is already "
+                                 "one cosine pass over fused song vectors")
+            return self._search_many_mm(seqs, k=k)
         exact = self._has_sets and not pooled
         Q = len(seqs)
         if Q == 0:
@@ -459,6 +656,28 @@ class QueryEngine:
             outs.append(out)
         return outs
 
+    @torch.inference_mode()
+    def _search_many_mm(self, mms, k: int = 10):
+        """Fusion search: multimodal query dicts (:func:`make_mm_query_embed_fn`)
+        -> deterministic collate -> fused z -> cosine against the indexed song
+        vectors, the whole batch in one model call."""
+        from wealy_tpu_torch.cli.main import _mm_embed
+        from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+
+        if not mms:
+            return []
+        items = [(i, [(i, mm)]) for i, mm in enumerate(mms)]
+        flat = flatten_multimodal_batch(self._collate_mm(items))
+        z = _mm_embed(self._mm_model, self._mm_call, flat, self.device)
+        zn = z / np.maximum(np.linalg.norm(z, axis=-1, keepdims=True), 1e-9)
+        cos = zn @ self._vn.T  # (Q, n)
+        return [{
+            "scoring": "fusion_cosine",
+            "results": [{"rank": r + 1, "version_key": self.keys[j], "clique": self.cliques[j],
+                         "score": round(float(cos[i, j]), 6)}
+                        for r, j in enumerate(np.argsort(-cos[i])[: min(k, len(self.keys))])],
+        } for i in range(len(mms))]
+
 
 def _quantize_int8(sets: np.ndarray, rows: int = 65536):
     """f16 (n, s, C) chunk sets -> (int8 sets, f32 (n, s) scales): per
@@ -510,6 +729,9 @@ def cmd_query(args) -> int:
         return 2
     try:  # an error answer, never a fallback
         engine = _build_engine(args, config)
+        if engine.fusion and args.query_embeddings:
+            raise ValueError("fusion indexes answer raw-audio queries only (a query needs both "
+                             "modalities computed cold); pass --audio")
     except ValueError as e:
         print(f"[query] {e}", file=sys.stderr)
         return 2
@@ -701,7 +923,7 @@ class SearchDaemon:
                 raise RuntimeError(self.failed) from e
             # the audio embed fn depends on the head and these fields only
             if new.checkpoint_step == old_step and all(
-                    old_meta.get(k) == new.meta.get(k) for k in ("emb_dim", "chunk_size")):
+                    old_meta.get(k) == new.meta.get(k) for k in _EMBED_META):
                 new._audio_fn = old_fn
             self.engine, self.failed = new, None
         return {"ok": True, "indexed": len(new.keys), "was": old_n,
@@ -778,6 +1000,9 @@ def _handler(daemon: SearchDaemon):
             seqs = []
             for e in entries:
                 if "embeddings" in e:
+                    if daemon.engine.fusion:
+                        raise ValueError("fusion indexes answer audio_path queries only (both "
+                                         "modalities are computed cold)")
                     seq = np.asarray(e["embeddings"], np.float32)
                     if seq.ndim != 2:
                         raise ValueError("embeddings must be (T, C)")

@@ -11,6 +11,8 @@
   multiple of ``chunk_bucket`` with a chunk-valid mask; ``chunk_info`` rows
   (batch_idx, version_idx, chunk_idx) regroup chunks per song.
 - :func:`collate_avg_pool`: time collapsed to one vector per version.
+- :func:`collate_full_songs` (``data.fullsongs``): whole sequences padded
+  to a length bucket.
 - :func:`select_wealy_chunk`: the WEALY chunk axis (train random, val
   first, test all).
 """
@@ -154,6 +156,34 @@ def collate_fixed_length(
                 masks[i, j, :] = True
             else:
                 embeddings[i, j], masks[i, j] = chunk_embedding(emb, L, mode, C, rng, dtype=edt)
+    return Batch(clique_ids, version_ids, embeddings, masks)
+
+
+def collate_full_songs(
+    items: Sequence[Item], length_bucket: int = 256, max_length: Optional[int] = None
+) -> Batch:
+    """``fullsongs`` collate: no chunking; sequences padded to the batch max
+    rounded up to a multiple of ``length_bucket``, optionally capped at
+    ``max_length``."""
+    B, n, C = len(items), len(items[0][1]), _embed_dim(items)
+    longest = max([1] + [np.asarray(emb).shape[0] for _, versions in items
+                         for _, emb in versions if emb is not None])
+    L = -(-longest // length_bucket) * length_bucket
+    if max_length is not None:
+        L = min(L, max_length)
+    clique_ids = np.empty((B,), np.int64)
+    version_ids = np.zeros((B, n), np.int64)
+    embeddings = np.zeros((B, n, L, C), np.float32)
+    masks = np.zeros((B, n, L), bool)
+    for i, (label, versions) in enumerate(items):
+        clique_ids[i] = label
+        for j, (vid, emb) in enumerate(versions):
+            version_ids[i, j] = vid
+            if emb is None:
+                continue
+            e = np.asarray(emb, np.float32)[:L]
+            embeddings[i, j, : e.shape[0]] = e
+            masks[i, j, : e.shape[0]] = True
     return Batch(clique_ids, version_ids, embeddings, masks)
 
 

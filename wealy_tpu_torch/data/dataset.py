@@ -142,13 +142,15 @@ def build_clean_dataset(
 
 class EmbeddingDataset:
     """Dataset over precomputed embeddings, sampler-backed. ``limit_cliques``
-    keeps the split's first N cliques (the reference's LIMIT_CLIQUES)."""
+    keeps the split's first N cliques (the reference's LIMIT_CLIQUES);
+    ``n_per_class`` overrides ``config.data.n_per_class``."""
 
     def __init__(
         self,
         config: Config,
         split: str = "train",
         *,
+        n_per_class: Optional[int] = None,
         debug: bool = False,
         limit_cliques: Optional[int] = None,
         check_audio: bool = False,
@@ -196,7 +198,7 @@ class EmbeddingDataset:
         self.report = validate_data_structures(self.metadata, split)
         self.sampler = CliqueSampler(
             self.metadata, split, self.load_embedding,
-            n_per_class=config.data.n_per_class,
+            n_per_class=n_per_class if n_per_class is not None else config.data.n_per_class,
             p_samesong=config.data.p_samesong,
             augment=config.data.augment,
             seed=seed,

@@ -81,10 +81,12 @@ def seeded_init_(head: nn.Module, seed: int = 0) -> nn.Module:
     the CPU, so that every device gets the same weights: conv and linear
     weights normal with std sqrt(1 / fan_in) (flax's lecun-normal scale,
     not its truncated draw, and not JAX's numbers), biases 0, LayerNorm
-    scale 1. Returns ``head``."""
+    scale 1. The fusion models of ``models/fusion.py`` take it too.
+    Returns ``head``."""
     gen = torch.Generator().manual_seed(seed)
+    norms = {f"{name}.weight" for name, m in head.named_modules() if isinstance(m, nn.LayerNorm)}
     for name, p in head.named_parameters():
-        if name.endswith("norm.weight"):
+        if name in norms:
             p.fill_(1.0)
         elif name.endswith("bias"):
             p.zero_()

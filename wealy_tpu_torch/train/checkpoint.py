@@ -3,7 +3,8 @@
 JAX to read, so the port neither reads nor writes them).
 
 ``<directory>/ckpt_<step>.pt`` holds the payload ``{"step", "params",
-"opt_state"}``: ``params`` maps each trainable parameter name to its f32
+"opt_state"[, "batch_stats"]}`` (``batch_stats``: the BatchNorm running
+statistics, for a model with BatchNorm): ``params`` maps each trainable parameter name to its f32
 value, which is also a state dict that ``load_state_dict`` takes, so
 ``evaluate --checkpoint`` reads a trained head from it directly. The
 data-order sidecar ``data_state_<step>.json`` sits beside it. The
@@ -66,8 +67,11 @@ class CheckpointManager:
                     (v.detach().cpu() if isinstance(v, torch.Tensor) else v)
                     for k, v in tree.items()}
 
-        self.save(state.step, {"step": int(state.step), "params": host(state.params),
-                               "opt_state": host(state.opt_state)})
+        payload = {"step": int(state.step), "params": host(state.params),
+                   "opt_state": host(state.opt_state)}
+        if state.batch_stats:
+            payload["batch_stats"] = host(state.batch_stats)
+        self.save(state.step, payload)
         if data_state is not None:
             p = self.directory / f"data_state_{int(state.step)}.json"
             tmp = p.with_suffix(".json.tmp")
@@ -84,6 +88,8 @@ class CheckpointManager:
 
     def restore_state(self, state):
         """Load the latest payload into an initialised TrainState (masters,
-        moments, count, step, and the model's weights)."""
+        moments, count, step, running statistics, and the model's
+        weights)."""
         payload = self.restore()
-        return state.load(payload["params"], payload["opt_state"], payload["step"])
+        return state.load(payload["params"], payload["opt_state"], payload["step"],
+                          payload.get("batch_stats"))

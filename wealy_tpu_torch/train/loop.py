@@ -102,6 +102,7 @@ def fit(
     data_seed: int = 0,
     start_epoch: int = 0,
     start_batch: int = 0,
+    make_batch: Optional[Callable] = None,
 ):
     """Train until ``max_steps``; returns (state, writer).
 
@@ -114,8 +115,10 @@ def fit(
     / ``start_batch`` resume the exact data order of the uninterrupted run.
     Checkpoints are written every ``checkpoint_every`` steps and once at
     the end. An epoch with no batch (fewer items than ``batch_size``)
-    raises. ``mesh`` (multi-device) comes with the ``parallel/`` slice and
-    the multimodal ``make_batch`` with the CLEWS/fusion slice.
+    raises. ``make_batch(items, batch_rng) -> dict`` of arrays replaces the
+    single-modal collate (the fusion models' collate and
+    ``train/multimodal.py::flatten_multimodal_batch``). ``mesh``
+    (multi-device) comes with the ``parallel/`` slice.
     """
     if mesh is not None:
         raise NotImplementedError("fit on a mesh comes with the parallel/ slice of the port")
@@ -124,6 +127,9 @@ def fit(
 
     def produce(entry):
         _, brng, items = entry
+        if make_batch is not None:
+            return {k: torch.from_numpy(np.asarray(v)).to(device)
+                    for k, v in make_batch(items, brng).items()}
         batch = collate_fixed_length(items, chunk_size=chunk_size, use_random_chunks=True,
                                      rng=brng)
         return batch_to_device(batch, device)

@@ -70,7 +70,8 @@ def make_optimizer(
 
 class TrainState:
     """``step``, the ``model`` (its trainable parameters), their f32
-    ``params`` and the AdamW ``opt_state`` ({"count", "mu", "nu"})."""
+    ``params``, the AdamW ``opt_state`` ({"count", "mu", "nu"}) and the
+    model's BatchNorm ``batch_stats``."""
 
     def __init__(self, model: nn.Module, tx: Optional[AdamWSchedule] = None, step: int = 0):
         self.model = model
@@ -88,6 +89,14 @@ class TrainState:
             "mu": {n: torch.zeros_like(m) for n, m in self.params.items()},
             "nu": {n: torch.zeros_like(m) for n, m in self.params.items()},
         }
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The model's BatchNorm running statistics (buffer name -> tensor,
+        the module's own buffers: the train step updates them), empty for a
+        model without BatchNorm."""
+        return {n: b for n, b in self.model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))}
 
     @property
     def device(self) -> torch.device:
@@ -123,8 +132,16 @@ class TrainState:
         self.step += 1
         return self
 
-    def load(self, params: Dict[str, torch.Tensor], opt_state: dict, step: int) -> "TrainState":
-        """Restore masters, moments, count and step (checkpoint resume)."""
+    def load(self, params: Dict[str, torch.Tensor], opt_state: dict, step: int,
+             batch_stats: Optional[Dict[str, torch.Tensor]] = None) -> "TrainState":
+        """Restore masters, moments, count, step and the running statistics
+        (checkpoint resume)."""
+        own = self.batch_stats
+        if set(batch_stats or {}) != set(own):
+            raise ValueError(f"checkpoint batch_stats {sorted(batch_stats or {})} do not match "
+                             f"the model's {sorted(own)}")
+        for name, b in own.items():
+            b.copy_(batch_stats[name])
         for name, p in self.trainable:
             self.params[name].copy_(params[name])
             self.opt_state["mu"][name].copy_(opt_state["mu"][name])
@@ -137,10 +154,14 @@ class TrainState:
 
 
 def seeded_init_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded init on a ``torch.Generator``: a model's own ``init_weights``
-    (Whisper) or the heads' ``seeded_init_``."""
+    """Seeded init on a ``torch.Generator``: the CLEWS encoder's
+    ``seeded_init_``, a model's own ``init_weights`` (Whisper), or the
+    heads' ``seeded_init_`` (the heads and the fusion models)."""
+    from wealy_tpu_torch.models import clews_encoder
     from wealy_tpu_torch.models.heads import seeded_init_ as head_init
 
+    if isinstance(model, (clews_encoder.ClewsEncoder, clews_encoder.ClewsWindowEncoder)):
+        return clews_encoder.seeded_init_(model, seed)
     if hasattr(model, "init_weights"):
         device = next(model.parameters()).device
         return model.init_weights(torch.Generator(device=device).manual_seed(seed))

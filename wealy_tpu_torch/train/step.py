@@ -15,8 +15,16 @@ backpropagate its slice of dz, accumulating the parameter gradients in f32.
 Peak activation memory is one chunk's; the gradients equal the single-pass
 step's up to the order of the sums.
 
-The mesh (data-parallel) step comes with the ``parallel/`` slice and the
-BatchNorm (``with_batch_stats``) step with the CLEWS encoder slice.
+``with_batch_stats``: the step of a model with BatchNorm (the CLEWS
+encoder). The forward runs in training mode, so BatchNorm normalises with
+the batch statistics, and the model's running statistics (the state's
+``batch_stats``) are updated once per step by that forward, as the JAX
+step threads ``batch_stats`` through ``mutable``. The default call is
+``model(batch["emb"])``. ``grad_accum > 1`` with BatchNorm raises
+``ValueError``, as in JAX: a chunked step would change the batch
+statistics.
+
+The mesh (data-parallel) step comes with the ``parallel/`` slice.
 """
 
 from __future__ import annotations
@@ -42,6 +50,10 @@ def upcast_batch(batch: dict) -> dict:
 
 def default_model_call(model, batch: dict):
     return model(batch["emb"], batch["mask"])
+
+
+def batch_stats_model_call(model, batch: dict):
+    return model(batch["emb"])
 
 
 def loss_and_grads(
@@ -110,18 +122,17 @@ def make_train_step(
     place and returned). ``model`` is unused beyond the signature of the
     JAX function: the step trains ``state.model``."""
     del model
+    if grad_accum > 1 and with_batch_stats:
+        raise ValueError("grad_accum is incompatible with batch_stats (BatchNorm) models")
     if mesh is not None:
         raise NotImplementedError(
             "the mesh (data-parallel) train step comes with the parallel/ slice of the port"
         )
-    if with_batch_stats:
-        raise NotImplementedError(
-            "the BatchNorm (with_batch_stats) train step comes with the CLEWS encoder slice "
-            "of the port"
-        )
-    call = model_call or default_model_call
+    call = model_call or (batch_stats_model_call if with_batch_stats else default_model_call)
 
     def step(state: TrainState, batch: dict):
+        if with_batch_stats:
+            state.model.train()  # batch statistics in, running statistics updated
         loss, logdict, grads = loss_and_grads(state, batch, loss_fn, call, grad_accum)
         state.apply_gradients(grads)
         logdict: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
