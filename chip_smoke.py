@@ -42,7 +42,13 @@ project at full width (WEALY chunks 512, ``hs_last_seq`` 1280, CLEWS (116,
 one name a signature with the first losses card against CPU, a fusion
 ``index`` and ``query --audio`` (whisper-tiny card against CPU,
 large-v3-turbo p50; K1-K3), and the BatchNorm step of the class-default
-ClewsEncoder card against CPU. Every kernel is
+ClewsEncoder card against CPU. Phase 23 transcribes phase 21's audio at
+large-v3-turbo through ``transcribe``: batched greedy with a toy tokenizer
+written at run time, batched beam search (K=5), the long-form ladder (and
+its beam rung with an initial prompt), ``extract --batched`` through float8
+KV caches beside the bf16 route (the JAX tests' bounds, teacher-forced),
+and whisper-tiny card against CPU (greedy tokens up to the CPU's first
+near-tie, teacher-forced logits, ``detect_language``). Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -737,10 +743,16 @@ def main() -> int:
               extract_split_phase(tmp, dev, reset_counts, counts, smi, 6 / turbo_s))
         fusion_launches = fusion_phase(tmp, dev, reset_counts, counts, smi)
         tally("22 fusion", fusion_launches)
+        # 23. transcription on phase 21's audio
+        transcribe_launches = transcription_phase(tmp, dev, reset_counts, counts, smi)
+        tally("23 transcription", transcribe_launches)
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
         check(fusion_launches[name] > 0, f"phase 22 launched {name} {fusion_launches[name]} times")
+    for name in EXTRACT_KERNELS:
+        check(transcribe_launches[name] > 0,
+              f"phase 23 launched {name} {transcribe_launches[name]} times")
     for k in kernels.values():
         check(k["launches"] > 0, f"{k['name']} was launched on no main path {k['launches_by_phase']}")
 
@@ -2331,6 +2343,323 @@ def batch_norm_step(dev, steps: int = 3, windows: int = 116) -> str:
             f"{len(sp[-1])} running statistics, worst relative difference by step "
             f"{[f'{w[0]:.3g} ({w[1]}: {w[2]:.6g} vs {w[3]:.6g})' for w in worsts]}; "
             f"{step_ms:.2f} ms a step on the card")
+
+
+# phase 23: the toy vocabulary's merges over the 256 byte tokens, and the
+# long-form initial prompt
+TOY_MERGES = (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("l", "l"), ("ll", "o"), ("i", "n"),
+              ("Ġ", "a"), ("e", "r"))
+INITIAL_PROMPT = "la la love song"
+# float8 against the same decode at the compute dtype, teacher-forced: the JAX
+# tests' bounds on the largest error relative to the largest state
+F8_CROSS_BOUND, F8_SELF_BOUND = 0.06, 0.08
+
+
+def write_toy_vocab(path: str) -> str:
+    """A byte-level BPE vocabulary in ``path``: the 256 byte tokens (id =
+    byte value), one token a merge of TOY_MERGES, and Whisper's
+    <|endoftext|> and <|startoftranscript|> as specials."""
+    from wealy_tpu_torch.data.tokenizer import _bytes_to_unicode
+
+    os.makedirs(path)
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    for a, b in TOY_MERGES:
+        vocab[a + b] = len(vocab)
+    special = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258}
+    vocab.update(special)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in TOY_MERGES) + "\n")
+    with open(os.path.join(path, "special_tokens.json"), "w") as f:
+        json.dump(special, f)
+    return path
+
+
+def transcription_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
+    """23. Transcription on phase 21's audio project at large-v3-turbo (full
+    width and depth, seeded weights) through the CLI: a. ``transcribe
+    --greedy --batched --batch-size 16 --max-len 224 --tokenizer-dir`` (a
+    toy vocabulary written here) over the 48 versions, the census, a resume
+    that skips all; b. the same with ``--beam-size 5 --limit 8`` (B*K = 80
+    rows); c. the long-form default (``--limit 4 --max-len 64``), again with
+    ``--beam-size 5 --initial-prompt``: s, rungs and decodes a chunk; one
+    ``transcribe_longform`` with both thresholds None (the context carries);
+    d. ``extract --batched --kinds hs_last_seq`` over the first 16 versions
+    at B=16 with ``--cross-kv-f8 --self-kv-f8`` beside the bf16 route:
+    chunks/s, state cosine over each chunk's common token prefix, the JAX
+    tests' bounds teacher-forced, the f8 cast card == CPU; e. whisper-tiny
+    in bf16, card against CPU on the first 4 versions: greedy tokens equal
+    up to the CPU's first top-2 log-prob margin below 1e-2, teacher-forced
+    logits along the CPU's tokens at row cosine >= 0.9999, the same
+    ``detect_language`` index. The commands share one model from the seed,
+    built once through their loader (timed). Returns the launches of a-d."""
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.cli import extract_batched
+    from wealy_tpu_torch.cli import transcribe as ttr
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.data.audio_dataset import AudioDataset
+    from wealy_tpu_torch.data.dataset import build_clean_dataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.data.packed_store import PackedStore
+    from wealy_tpu_torch.models.whisper import extract as wextract
+    from wealy_tpu_torch.models.whisper import generate as wgen
+    from wealy_tpu_torch.models.whisper.longform import TEMPERATURES, transcribe_longform
+    from wealy_tpu_torch.train.config import Config
+
+    t_phase = time.perf_counter()
+    lc, data = os.path.join(tmp, "lc"), os.path.join(tmp, "data")
+    vocab = write_toy_vocab(os.path.join(tmp, "vocab"))
+
+    def conf(name: str) -> str:
+        return write_config(os.path.join(tmp, f"{name}.json"), lc, os.path.join(tmp, f"hs_{name}"),
+                            os.path.join(tmp, f"cache_{name}"), whisper_size="large-v3-turbo",
+                            data_root=data)
+
+    def tree(name: str) -> list:
+        root = os.path.join(tmp, f"cache_{name}", "transcriptions", "turbo_nothing_whisper_42",
+                            "test")
+        return sorted(f for f in os.listdir(root) if f.endswith(".txt"))
+
+    md, _ = build_clean_dataset(Config.from_file(conf("tr_a")), check_audio=True)
+    order = AudioDataset(md, "test", data).versions
+    n = len(order)
+    x_pack = PackedStore(os.path.join(tmp, "hs"), "x_concat", dataset_name="lyric-covers")
+    n_chunks = {v: x_pack.load(v).shape[0] for v in order}  # phase 21's rows: one a chunk
+
+    # the commands' model: built once from the seed where their loaders make it
+    built, builds = {}, []
+
+    def shared_load(size, checkpoint=None, seed=0, device="cuda", dtype=torch.bfloat16):
+        key = (size, str(device), dtype)
+        if key not in built:
+            t = time.perf_counter()
+            built[key] = load_whisper_model(size, checkpoint, seed, device, dtype)
+            torch.cuda.synchronize()
+            builds.append(time.perf_counter() - t)
+        return built[key]
+
+    segments, dec_tokens = [], {}
+    real_lf, real_dec = ttr.transcribe_longform, wextract.decoder_embeddings
+
+    def recording_lf(*args, **kw):
+        out = real_lf(*args, **kw)
+        segments[-1].append(out["segments"])
+        return out
+
+    def recording_dec(route):
+        def decoder_embeddings(*args, **kw):
+            out = real_dec(*args, **kw)
+            dec_tokens.setdefault(route, []).append(out["tokens"].cpu().numpy())
+            return out
+        return decoder_embeddings
+
+    batched = ["--split", "test", "--greedy", "--batched", "--batch-size", "16", "--max-len",
+               "224", "--tokenizer-dir", vocab]
+    ext = ["--split", "test", "--batched", "--kinds", "hs_last_seq", "--limit", "16",
+           "--batch-size", "16"]
+    reset_counts()
+    with mock.patch.object(ttr, "load_whisper_model", shared_load), \
+            mock.patch.object(extract_batched, "load_whisper_model", shared_load), \
+            mock.patch.object(ttr, "transcribe_longform", recording_lf):
+        # a. batched greedy, then the resume
+        ga, ga_s = run_cli(["transcribe", "--config", conf("tr_a")] + batched)
+        build_s = builds[0]
+        again, again_s = run_cli(["transcribe", "--config", conf("tr_a")] + batched)
+        # b. batched beam search
+        gb, gb_s = run_cli(["transcribe", "--config", conf("tr_b")] + batched
+                           + ["--beam-size", "5", "--limit", "8"])
+        # c. the long-form default, then its beam rung with an initial prompt
+        lf_runs = []
+        for name, extra in (("tr_c", []), ("tr_c_beam", ["--beam-size", "5", "--initial-prompt",
+                                                         INITIAL_PROMPT, "--tokenizer-dir",
+                                                         vocab])):
+            segments.append([])
+            out, wall = run_cli(["transcribe", "--config", conf(name), "--split", "test",
+                                 "--limit", "4", "--max-len", "64"] + extra)
+            lf_runs.append((name, out, wall, segments[-1]))
+        # d. the decoder kind through float8 KV caches beside the bf16 route
+        with mock.patch.object(wextract, "decoder_embeddings", recording_dec("bf16")):
+            eb, eb_s = run_cli(["extract", "--config", conf("ex_bf16")] + ext)
+        with mock.patch.object(wextract, "decoder_embeddings", recording_dec("f8")):
+            ef, ef_s = run_cli(["extract", "--config", conf("ex_f8")] + ext
+                               + ["--cross-kv-f8", "--self-kv-f8"])
+    launched = counts()
+    check(len(builds) == 1, f"phase 23 model builds {builds} (one for every command)")
+    check(all(launched[k] > 0 for k in EXTRACT_KERNELS), f"phase 23 launches {launched}")
+
+    # a. every version transcribed, the census over them, the resume
+    chunks_a = ga["throughput"]["total_items"]
+    check(ga["done"] == n and ga["failed"] == 0 and ga["n_total"] == n
+          and len(tree("tr_a")) == n and chunks_a == sum(n_chunks.values()),
+          f"phase 23a {ga} ({len(tree('tr_a'))} .txt files, {n} versions)")
+    check(again["done"] == 0 and again["skipped"] == n, f"phase 23a resume {again}")
+    with open(ga["cache_file"]) as f:
+        census = json.load(f)
+    check(len(census["texts"]) == n, f"phase 23a census of {len(census['texts'])} texts")
+    line_a = (f"a. --greedy --batched B=16 max_len 224, toy tokenizer: {n} versions, {chunks_a} "
+              f"chunks, {ga_s:.2f} s wall, less the model's build {build_s:.2f} s: "
+              f"{chunks_a / (ga_s - build_s):.2f} chunks/s; meter "
+              f"{ga['throughput']['items_per_sec']} chunks/s ({ga['throughput']['total_steps']} "
+              f"batches); {len(tree('tr_a'))} .txt, census n_valid {ga['n_valid']} of "
+              f"{ga['n_total']}; resume {again_s:.2f} s, {again['skipped']} skipped")
+
+    # b. beam search, K=5
+    chunks_b = gb["throughput"]["total_items"]
+    check(gb["done"] == 8 and gb["failed"] == 0 and len(tree("tr_b")) == 8
+          and chunks_b == sum(n_chunks[v] for v in order[:8]), f"phase 23b {gb}")
+    line_b = (f"b. --beam-size 5 --limit 8: {chunks_b} chunks (B*K up to 80 rows), {gb_s:.2f} s "
+              f"= {chunks_b / gb_s:.2f} chunks/s; meter {gb['throughput']['items_per_sec']}")
+
+    # c. the long-form ladder: rungs a chunk (one batched decode each; a sampled
+    # rung decodes best_of=5 rows, the t=0 rung one row or K beams)
+    parts = []
+    for name, out, wall, segs in lf_runs:
+        chunk_segs = [s for song in segs for s in song]
+        rungs = [TEMPERATURES.index(s["temperature"]) + 1 for s in chunk_segs]
+        check(out["done"] == 4 and out["failed"] == 0 and len(chunk_segs) == sum(
+            n_chunks[v] for v in order[:4]), f"phase 23c {name} {out}, {len(chunk_segs)} chunks")
+        check(all(math.isfinite(s["avg_logprob"]) for s in chunk_segs),
+              f"phase 23c {name} log-probs {chunk_segs}")
+        parts.append(f"{name}: {len(chunk_segs)} chunks, {wall:.2f} s = "
+                     f"{wall / len(chunk_segs):.3f} s a chunk, rungs a chunk "
+                     f"{np.mean(rungs):.2f} (decodes {sum(rungs)}), temperatures "
+                     f"{sorted({s['temperature'] for s in chunk_segs})}, context lengths "
+                     f"{[s['context_len'] for s in chunk_segs]}")
+    check(lf_runs[1][3][0][0]["context_len"] > 0,
+          f"phase 23c the initial prompt gave no context {lf_runs[1][3][0][0]}")
+    model, cfg = built[("large-v3-turbo", str(dev), torch.bfloat16)]
+    song = max(order[:8], key=lambda v: n_chunks[v])
+    ds = AudioDataset(md, "test", data)
+    audio = torch.from_numpy(wextract.chunk_waveform(ds[order.index(song)].waveform)).to(dev)
+    with torch.inference_mode():
+        states = model.encode(log_mel_spectrogram_fused(audio, cfg.n_mels))
+        t = time.perf_counter()
+        carried = transcribe_longform(model, states, cfg, max_len=64,
+                                      compression_ratio_threshold=None, logprob_threshold=None,
+                                      no_speech_threshold=None, seed=23)
+        carried_s = time.perf_counter() - t
+    ctx = [s["context_len"] for s in carried["segments"]]
+    check(len(ctx) >= 2 and max(ctx[1:]) > 0 and ctx[0] == 0,
+          f"phase 23c thresholds None: context lengths {ctx}")
+    line_c = (f"c. long-form --limit 4 --max-len 64: {'; '.join(parts)}; thresholds None over "
+              f"{song} ({len(ctx)} chunks): context lengths {ctx}, {carried_s:.2f} s")
+
+    # d. float8: rates, the states over each chunk's common token prefix, the
+    # JAX bounds teacher-forced, the cast
+    first16 = order[:16]
+    chunks_d = eb["throughput"]["total_items"]
+    check(eb["done"] == ef["done"] == len(first16) and chunks_d == ef["throughput"]["total_items"]
+          == sum(n_chunks[v] for v in first16), f"phase 23d bf16 {eb} f8 {ef}")
+    stores = {r: EmbeddingStore(os.path.join(tmp, f"hs_ex_{r}"), "lyric-covers")
+              for r in ("bf16", "f8")}
+    seqs = {r: {v: stores[r].load(v, "hs_last_seq.npz")["embeddings"] for v in first16}
+            for r in stores}
+    toks = {r: np.concatenate(dec_tokens[r])[:chunks_d] for r in stores}
+    prompt_len = len(wgen.default_prompt(cfg))
+    _, _, pairs = token_prefix_rows(toks["f8"], toks["bf16"], seqs["f8"], seqs["bf16"],
+                                    [(v, n_chunks[v]) for v in first16], prompt=prompt_len,
+                                    max_len=224, eot=cfg.eot)
+    prefix_rows = sum(len(a) for a, _ in pairs)
+    f8_cos = min(min_row_cos(torch.from_numpy(a), torch.from_numpy(b)) for a, b in pairs if len(a))
+    same_tokens = float((toks["f8"] == toks["bf16"]).mean())
+    f8 = torch.float8_e4m3fn
+    with torch.inference_mode():
+        # two chunks of the song above, along their own bf16 greedy tokens
+        tf_states = states[:2]
+        tf_tokens = wgen.greedy_decode(model, tf_states, cfg, wgen.default_prompt(cfg),
+                                       max_len=64)["tokens"]
+        B, L = tf_tokens.shape
+
+        def teacher_forced(self_dtype, cross_dtype):
+            caches = wgen.init_kv_caches(cfg, B, L, dtype=self_dtype or model.dtype, device=dev)
+            xa = wgen.decode_cross_kv(model, tf_states, None, cross_dtype)
+            hid, _, caches = model.decode(tf_tokens, None, kv_caches=caches, cache_index=0,
+                                          xa_kv=xa)
+            check(caches[0][0].dtype == (self_dtype or model.dtype),
+                  f"phase 23d cache dtype {caches[0][0].dtype}")
+            return hid.float()
+
+        ref = teacher_forced(None, None)
+        rel_cross = float((teacher_forced(None, f8) - ref).abs().max() / ref.abs().max())
+        rel_self = float((teacher_forced(f8, None) - ref).abs().max() / ref.abs().max())
+    check(rel_cross < F8_CROSS_BOUND and rel_self < F8_SELF_BOUND,
+          f"phase 23d f8 teacher-forced relative error cross {rel_cross:.4f} (< {F8_CROSS_BOUND})"
+          f", self {rel_self:.4f} (< {F8_SELF_BOUND})")
+    grid = torch.linspace(-448, 448, 20001).bfloat16()
+    grid = torch.cat([grid, grid * 2.0 ** -12, grid * 2.0 ** -8])
+    cast_same = torch.equal(grid.to(dev).to(f8).view(torch.uint8).cpu(),
+                            grid.to(f8).view(torch.uint8))
+    check(cast_same, "phase 23d the f8 cast differs card vs CPU")
+    line_d = (f"d. extract --batched hs_last_seq B=16, first 16 versions ({chunks_d} chunks): "
+              f"bf16 {eb_s:.2f} s = {chunks_d / eb_s:.2f} chunks/s (meter "
+              f"{eb['throughput']['items_per_sec']}), --cross-kv-f8 --self-kv-f8 {ef_s:.2f} s = "
+              f"{chunks_d / ef_s:.2f} chunks/s (meter {ef['throughput']['items_per_sec']}); "
+              f"tokens equal {same_tokens:.4f} of positions, {prefix_rows} rows before the "
+              f"tokens part cos {f8_cos:.6f}; teacher-forced over {B} x {L}: cross f8 rel "
+              f"{rel_cross:.4f}, self f8 rel {rel_self:.4f}; cast card == CPU {cast_same} "
+              f"({grid.numel()} bf16 values)")
+    del model, states, built
+    torch.cuda.empty_cache()
+
+    # e. whisper-tiny in bf16, card against CPU, on the first 4 versions
+    t_e = time.perf_counter()
+    cpu_model, tcfg = load_whisper_model("tiny", seed=0, device="cpu", dtype=torch.bfloat16)
+    card_model, _ = load_whisper_model("tiny", seed=0, device=dev, dtype=torch.bfloat16)
+    chunks = torch.from_numpy(np.concatenate([wextract.chunk_waveform(ds[i].waveform)
+                                              for i in range(4)]))
+    prompt = wgen.default_prompt(tcfg, language=0)
+    suppress = wgen.default_suppress_tokens(tcfg)
+    res = {}
+    for where, m in (("cuda", card_model), ("cpu", cpu_model)):
+        with torch.inference_mode():
+            st = m.encode(log_mel_spectrogram_fused(chunks.to(m.device), tcfg.n_mels))
+            out = wgen.greedy_decode(m, st, tcfg, prompt, max_len=64, suppress_tokens=suppress)
+            lang, lang_logp = wgen.detect_language(m, st, tcfg)
+        res[where] = (st, out, lang.cpu(), lang_logp.float().cpu())
+    cpu_tokens = res["cpu"][1]["tokens"]
+    logits = {}
+    for where, m in (("cuda", card_model), ("cpu", cpu_model)):
+        with torch.inference_mode():
+            caches = wgen.init_kv_caches(tcfg, len(chunks), 64, dtype=m.dtype, device=m.device)
+            _, lg, _ = m.decode(cpu_tokens.to(m.device), None, kv_caches=caches, cache_index=0,
+                                xa_kv=wgen.decode_cross_kv(m, res[where][0]))
+        logits[where] = lg.float().cpu()
+    lengths = res["cpu"][1]["lengths"]
+    logit_cos = min(min_row_cos(logits["cuda"][b, : int(n) - 1], logits["cpu"][b, : int(n) - 1])
+                    for b, n in enumerate(lengths))
+    masked = logits["cpu"].masked_fill(wgen.suppress_mask(tcfg, suppress, "cpu"), float("-inf"))
+    top2 = torch.log_softmax(masked, -1).topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]  # margin[b, j]: the choice of token j + 1
+    card_tokens = res["cuda"][1]["tokens"].cpu()
+    held, compared = True, 0
+    for b in range(len(chunks)):
+        L = int(lengths[b])
+        low = [j + 1 for j in range(len(prompt) - 1, min(L, 63)) if margin[b, j] < 1e-2]
+        upto = min(low) if low else 64
+        compared += upto - len(prompt)
+        held &= torch.equal(card_tokens[b, :upto], cpu_tokens[b, :upto])
+    lang_margin = res["cpu"][3].topk(2, dim=-1).values
+    lang_close = (lang_margin[:, 0] - lang_margin[:, 1]) < 1e-2
+    lang_same = bool(((res["cuda"][2] == res["cpu"][2]) | lang_close).all())
+    check(held, "phase 23e tiny greedy tokens differ card vs CPU before the CPU's first top-2 "
+          "margin below 1e-2")
+    check(logit_cos >= 0.9999, f"phase 23e teacher-forced logits card vs CPU cos {logit_cos:.6f}")
+    check(lang_same, f"phase 23e detect_language card {res['cuda'][2].tolist()} CPU "
+          f"{res['cpu'][2].tolist()} (margins {lang_margin.tolist()})")
+    line_e = (f"e. whisper-tiny bf16 card vs CPU, {len(chunks)} chunks: greedy tokens equal "
+              f"{float((card_tokens == cpu_tokens).float().mean()):.4f} of positions, held up to "
+              f"the first margin < 1e-2 ({compared} positions compared), teacher-forced logits "
+              f"cos {logit_cos:.6f}, detect_language card {res['cuda'][2].tolist()} CPU "
+              f"{res['cpu'][2].tolist()} ({int(lang_close.sum())} rows within 1e-2); "
+              f"{time.perf_counter() - t_e:.1f} s")
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    say(f"[23 transcription] large-v3-turbo, seeded weights, one build {build_s:.2f} s | {line_a} "
+        f"| {line_b} | {line_c} | {line_d} | {line_e}; launches {launched}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launched
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -47,3 +47,35 @@ def jax_and_port_whisper(cfg, dtype: str, seed: int = 0, scan_layers: bool = Fal
     port = Whisper(cfg, dtype=getattr(torch, dtype))
     port.load_state_dict(state_dict_from_jax_params(params))
     return jmodel, params, port.eval()
+
+
+# the toy vocabulary's merges: a few English pairs over the 256 byte tokens
+TOY_MERGES = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("l", "l"), ("ll", "o"), ("Ġ", "a"),
+              ("i", "n"), ("Ġ", "s"), ("e", "r"), ("o", "u")]
+
+
+def write_toy_vocab(path, special: dict = None, words: int = 0):
+    """A byte-level BPE vocabulary in ``path`` (vocab.json, merges.txt,
+    special_tokens.json): the 256 byte tokens (id = byte value), then one
+    token per merge of :data:`TOY_MERGES`, then (up to id ``words``) one
+    word "Ġw<id>" per id, and ``special`` ({token: id})."""
+    import json
+    from pathlib import Path
+
+    from wealy_tpu_torch.data.tokenizer import _bytes_to_unicode
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    for a, b in TOY_MERGES:
+        vocab[a + b] = len(vocab)
+    for i in range(len(vocab), words):
+        vocab[f"Ġw{i}"] = i
+    special = dict(special or {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258})
+    vocab.update(special)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in TOY_MERGES) + "\n")
+    (path / "special_tokens.json").write_text(json.dumps(special))
+    return path

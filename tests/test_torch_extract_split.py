@@ -335,15 +335,32 @@ def test_what_is_not_ported_names_its_item(project, flags, item, capsys):
         assert port_main(argv + ["--limit", "1"]) == 0
         assert _json_line(capsys) == {"done": 1, "skipped": 0, "failed": 0}
         return
+    if item == 5:
+        # ported with transcription (item 5): the batched decoder kind stores
+        # through float8 KV caches; the one-song path ignores the flags, as
+        # the JAX CLI's does
+        assert port_main(argv + ["--limit", "1", "--kinds", "hs_last_seq", "--overwrite"]) == 0
+        out = _json_line(capsys)
+        assert out["done"] == 1 and out["skipped"] == 0
+        assert out.get("incomplete", []) == [] and out.get("failed", 0) == 0
+        seq = EmbeddingStore(project / "unported", "lyric-covers").load("100", "hs_last_seq.npz")
+        emb = seq["embeddings"]
+        assert emb.ndim == 2 and emb.shape[1] == 64 and np.isfinite(emb).all()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         port_main(argv)
 
 
-def test_embed_factories_name_their_items():
+def test_embed_factories_name_their_items(project):
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         TEB.make_encoder_embed_fn(None, quant_int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        TEB.make_decoder_embed_fn(None, cross_kv_f8=True, device="cpu")
+    # the float8 KV modes came with item 5: the factory builds and decodes
+    config = Config.from_dict(_conf(project, "f8_factory"))
+    fn = TEB.make_decoder_embed_fn(config, cross_kv_f8=True, self_kv_f8=True, max_len=6,
+                                   device="cpu")
+    hidden, lengths = fn(np.zeros((1, 480000), np.float32))
+    assert hidden.shape == (1, 6, 64) and bool(torch.isfinite(hidden).all())
+    assert 2 <= int(lengths[0]) <= 6
 
 
 def test_cli_extract_batched_pack_and_resume(project, checkpoint, capsys):

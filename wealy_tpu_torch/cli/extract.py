@@ -47,8 +47,9 @@ class _SongFailure:
 
     PER_SONG = (torch.cuda.OutOfMemoryError, OSError)
 
-    def __init__(self, version_key: str, failed: list, log: Callable[[str], None]):
-        self.version_key, self.failed, self.log = version_key, failed, log
+    def __init__(self, version_key: str, failed: list, log: Callable[[str], None],
+                 tag: str = "extract"):
+        self.version_key, self.failed, self.log, self.tag = version_key, failed, log, tag
 
     def __enter__(self) -> "_SongFailure":
         return self
@@ -57,7 +58,7 @@ class _SongFailure:
         if exc_type is None or not issubclass(exc_type, self.PER_SONG):
             return False
         self.failed.append(self.version_key)
-        self.log(f"[extract] FAILED {self.version_key}: {exc}")
+        self.log(f"[{self.tag}] FAILED {self.version_key}: {exc}")
         return True
 
 

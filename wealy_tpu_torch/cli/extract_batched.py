@@ -30,8 +30,9 @@ The embed functions of the split jobs and of the query path:
 Each builds the Whisper model once (``model.whisper_size``, weights from an
 openai-whisper/HF checkpoint or the seeded init of ``load_whisper_model``)
 and returns ``fn(audio)`` for a (B, 480000) batch of 16 kHz chunks. The
-f8 KV caches (ROADMAP item 5), the int8 encoder and the mesh and
-tensor-parallel paths (item 6) raise ``NotImplementedError``.
+decoder factory takes the float8 KV modes (``cross_kv_f8``,
+``self_kv_f8``); the int8 encoder and the mesh and tensor-parallel paths
+(ROADMAP item 6) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -293,7 +294,7 @@ def extract_split_batched_decoder(
 
 
 # the ROADMAP item each option of the embed factories waits for
-_ITEM = {"quant_int8": 6, "cross_kv_f8": 5, "self_kv_f8": 5, "mesh": 6, "tp": 6}
+_ITEM = {"quant_int8": 6, "mesh": 6, "tp": 6}
 
 
 def _refuse(**options) -> None:
@@ -333,10 +334,15 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
     """``fn(audio (B, 480000)) -> (hidden (B, max_len, D), lengths (B,))``:
     greedy transcription of every chunk with the decoder's last hidden
     state per position (``language=0`` forces English, None omits the
-    language and task tokens)."""
+    language and task tokens). ``cross_kv_f8`` / ``self_kv_f8`` store the
+    decode's cross-attention K/V / self-attention caches in
+    ``torch.float8_e4m3fn`` (cast from the compute dtype, upcast at every
+    read), the JAX factory's opt-in bandwidth modes."""
     from wealy_tpu_torch.models.whisper.extract import decoder_embeddings
 
-    _refuse(cross_kv_f8=cross_kv_f8, self_kv_f8=self_kv_f8, mesh=mesh is not None, tp=tp > 1)
+    _refuse(mesh=mesh is not None, tp=tp > 1)
+    f8 = {"cross_kv_dtype": torch.float8_e4m3fn if cross_kv_f8 else None,
+          "self_kv_dtype": torch.float8_e4m3fn if self_kv_f8 else None}
     device = resolve_device(device)
     model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
                                      device=device, dtype=dtype)
@@ -344,7 +350,7 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
     @torch.inference_mode()
     def decode_fn(audio):
         mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=wcfg.n_mels)
-        out = decoder_embeddings(model, mel, wcfg, language=language, max_len=max_len)
+        out = decoder_embeddings(model, mel, wcfg, language=language, max_len=max_len, **f8)
         return out["hidden"], out["lengths"]
 
     return decode_fn

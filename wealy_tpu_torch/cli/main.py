@@ -1,11 +1,14 @@
-"""Command-line entry of the port: ``validate-data``, ``extract``, ``pack``,
-``train``, ``evaluate``, and the serving commands ``index``, ``query`` and
-``serve``.
+"""Command-line entry of the port: ``validate-data``, ``extract``,
+``transcribe``, ``pack``, ``train``, ``evaluate``, and the serving commands
+``index``, ``query`` and ``serve``.
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
     python -m wealy_tpu_torch.cli.main extract --config conf.json --split train \\
         [--kinds x_concat,hs_last_seq|hs_clews] [--batched [--batch-size N] [--pack-direct]] \\
-        [--pack]
+        [--pack] [--cross-kv-f8] [--self-kv-f8]
+    python -m wealy_tpu_torch.cli.main transcribe --config conf.json --split train \\
+        [--tokenizer-dir DIR] [--greedy [--batched [--batch-size N]]] [--beam-size K] \\
+        [--initial-prompt TEXT] [--language L] [--max-len N] [--limit N] [--overwrite]
     python -m wealy_tpu_torch.cli.main pack --config conf.json [--split test] [--kind F.npz]
     python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
@@ -24,9 +27,15 @@ writes the packed mmap store; both write the JAX package's formats.
 ``extract --kinds hs_clews`` writes the CLEWS trio (``hs_clews``,
 ``hs_clews_avg``, ``hs_clews_mask``) of every version through the CQT and
 the window encoder (``models/clews_extract.py``; seeded torch weights).
+``extract --batched`` of a decoder kind takes ``--cross-kv-f8`` /
+``--self-kv-f8`` (float8 storage of the decode's cross K/V and self caches;
+the one-song-at-a-time path ignores them, as the JAX CLI does).
 ``extract``'s ``--quant-int8``, ``--tp`` above 1 and ``--profile`` (ROADMAP
-item 6) and ``--cross-kv-f8`` / ``--self-kv-f8`` (item 5) are parsed and
-raise ``NotImplementedError``.
+item 6) are parsed and raise ``NotImplementedError``.
+``transcribe`` writes the reference's ``.txt`` trees and the validity
+census (``cli/transcribe.py``): Whisper's long-form algorithm by default,
+``--greedy`` per-chunk decoding (``--batched``: chunks of many songs per
+device batch), ``--beam-size`` beam search on the deterministic rung.
 ``train`` trains the head of ``model.name`` on stored embeddings (all seven
 names: the ``whisper`` head, and the fusion models on the multimodal
 datasets and collates) with the configured loss (clews, ntxent, triplet),
@@ -128,8 +137,7 @@ def _refuse_unported(args, kind: str) -> None:
     naming its ROADMAP item."""
     items = {
         "--profile": (args.profile, 6), "--tp": (args.tp > 1, 6),
-        "--quant-int8": (args.quant_int8, 6), "--cross-kv-f8": (args.cross_kv_f8, 5),
-        "--self-kv-f8": (args.self_kv_f8, 5),
+        "--quant-int8": (args.quant_int8, 6),
     }
     on = [f"{name} (ROADMAP item {item})" for name, (set_, item) in items.items() if set_]
     if on:
@@ -231,7 +239,8 @@ def cmd_extract(args) -> int:
         if kind.startswith("hs_last"):
             language = 0 if kind.endswith("_en") else None
             decode_fn = _lazy(lambda: eb.make_decoder_embed_fn(
-                config, args.hf_checkpoint, language=language, device=device))
+                config, args.hf_checkpoint, language=language, cross_kv_f8=args.cross_kv_f8,
+                self_kv_f8=args.self_kv_f8, device=device))
             result = eb.extract_split_batched_decoder(config, md, args.split, decode_fn,
                                                       **common)
         else:
@@ -252,6 +261,45 @@ def cmd_extract(args) -> int:
         # packing depends only on what is on disk, not on what this run extracted
         _pack_kind(config, md, kind)
     return 0 if not result["incomplete"] else 1
+
+
+def cmd_transcribe(args) -> int:
+    """Transcribe a split into the .txt tree and run the census; the JAX
+    CLI's refusals (exit 2) and its one JSON line."""
+    from wealy_tpu_torch.cli.transcribe import transcribe_split, transcribe_split_batched
+    from wealy_tpu_torch.data.dataset import build_clean_dataset
+
+    config = _load_config(args.config)
+    if args.initial_prompt and (args.greedy or args.batched):
+        print("[transcribe] --initial-prompt needs the long-form path (<|startofprev|> "
+              "context); drop --greedy/--batched", file=sys.stderr)
+        return 2
+    if args.initial_prompt and not args.tokenizer_dir:
+        print("[transcribe] --initial-prompt requires --tokenizer-dir (the text must be "
+              "tokenized)", file=sys.stderr)
+        return 2
+    md, _ = build_clean_dataset(config, check_audio=True)
+    if args.batched and not args.greedy:
+        print("[transcribe] --batched implies greedy per-chunk decoding (long-form context "
+              "carry-over serializes each song); pass --greedy to acknowledge", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    common = dict(tokenizer_dir=args.tokenizer_dir,
+                  language=None if args.language < 0 else args.language,
+                  max_len=args.max_len, limit=args.limit, overwrite=args.overwrite,
+                  hf_checkpoint=args.hf_checkpoint, beam_size=args.beam_size, device=device)
+    if args.batched:
+        result = transcribe_split_batched(config, md, args.split, batch_size=args.batch_size,
+                                          n_workers=args.n_workers, **common)
+    else:
+        result = transcribe_split(config, md, args.split, longform=not args.greedy,
+                                  initial_prompt=args.initial_prompt, **common)
+    summary = {k: len(result[k]) for k in ("done", "skipped", "failed")}
+    summary.update({k: result[k] for k in ("n_valid", "n_total", "cache_file")})
+    if "throughput" in result:
+        summary["throughput"] = result["throughput"]
+    print(json.dumps(summary))
+    return 0 if not result["failed"] else 1
 
 
 def _pack_kind(config, md, kind: str) -> None:
@@ -779,13 +827,17 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (ROADMAP item 6; above 1 raises here)")
     e.add_argument("--self-kv-f8", action="store_true",
-                   help="float8 self-attention KV caches (ROADMAP item 5; raises here)")
+                   help="store the decode's self-attention KV caches in float8 (--batched "
+                   "decoder kinds)")
     e.add_argument("--cross-kv-f8", action="store_true",
-                   help="float8 cross-attention K/V (ROADMAP item 5; raises here)")
+                   help="store the decode's cross-attention K/V in float8 (--batched decoder "
+                   "kinds)")
     e.add_argument("--quant-int8", action="store_true",
                    help="W8A8 int8 encoder (ROADMAP item 6; raises here)")
     _add_device(e)
     e.set_defaults(fn=cmd_extract)
+
+    _add_transcribe_parser(sub)
 
     pk = sub.add_parser("pack", help="pack per-version embeddings into the mmap format")
     pk.add_argument("--config", required=True)
@@ -830,6 +882,40 @@ def build_parser() -> argparse.ArgumentParser:
     ev.set_defaults(fn=cmd_evaluate)
     _add_serving_parsers(sub)
     return p
+
+
+def _add_transcribe_parser(sub) -> None:
+    """``transcribe`` with the JAX parser's flags."""
+    tr = sub.add_parser("transcribe", help="transcribe a split to .txt + census")
+    tr.add_argument("--config", required=True)
+    tr.add_argument("--split", default="train")
+    tr.add_argument("--tokenizer-dir", default=None,
+                    help="directory of vocab.json + merges.txt (default: token-id lines)")
+    tr.add_argument("--hf-checkpoint", default=None,
+                    help="openai-whisper or HF state-dict file (default: seeded random init)")
+    tr.add_argument("--language", type=int, default=0, help="language index (0=en); -1 = auto")
+    tr.add_argument("--max-len", type=int, default=224)
+    tr.add_argument("--limit", type=int, default=None)
+    tr.add_argument("--overwrite", action="store_true")
+    tr.add_argument("--greedy", action="store_true",
+                    help="independent greedy per-chunk decode instead of the default "
+                    "sequential long-form algorithm (context carry-over + fallback)")
+    tr.add_argument("--batched", action="store_true",
+                    help="cross-song batched driver (requires --greedy): chunks from many "
+                    "songs share device batches")
+    tr.add_argument("--batch-size", type=int, default=16)
+    tr.add_argument("--n-workers", type=int, default=4,
+                    help="host audio-decode threads for --batched")
+    tr.add_argument("--initial-prompt", default=None,
+                    help="text pre-seeded into the first chunk's <|startofprev|> context "
+                    "(openai-whisper initial_prompt; long-form path only, requires "
+                    "--tokenizer-dir)")
+    tr.add_argument("--beam-size", type=int, default=None,
+                    help="beam search width for the deterministic rung (openai-whisper "
+                    "DecodingOptions.beam_size; default greedy); with the long-form ladder "
+                    "(t=0 rung) and with --greedy [--batched]")
+    _add_device(tr)
+    tr.set_defaults(fn=cmd_transcribe)
 
 
 def _add_serving_parsers(sub) -> None:

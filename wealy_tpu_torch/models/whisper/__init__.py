@@ -1,5 +1,6 @@
-"""Whisper in PyTorch: configs, model, weight conversion, greedy decode and
-embedding extraction (counterpart of ``wealy_tpu.models.whisper``)."""
+"""Whisper in PyTorch: configs, model, weight conversion, decoding (greedy,
+sampling, beam search, the long-form ladder) and embedding extraction
+(counterpart of ``wealy_tpu.models.whisper``)."""
 
 from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS, WhisperConfig
 from wealy_tpu_torch.models.whisper.convert import (
@@ -9,6 +10,8 @@ from wealy_tpu_torch.models.whisper.convert import (
 )
 from wealy_tpu_torch.models.whisper.generate import (
     default_prompt,
+    default_suppress_tokens,
+    detect_language,
     greedy_decode,
     init_kv_caches,
 )
@@ -30,6 +33,8 @@ __all__ = [
     "WhisperDecoder",
     "WhisperEncoder",
     "default_prompt",
+    "default_suppress_tokens",
+    "detect_language",
     "greedy_decode",
     "init_kv_caches",
     "load_openai_state_dict",

@@ -66,14 +66,18 @@ def decoder_embeddings(
     max_len: int = 224,
     eot: Optional[int] = None,
     states: Optional[torch.Tensor] = None,
+    cross_kv_dtype=None,
+    self_kv_dtype=None,
 ):
     """hs_last_all-style decoder last-hidden-state embeddings per chunk
     (the :func:`greedy_decode` dict). Set ``language=0`` for the ``_en``
-    variants; pass ``states`` to reuse encoder states already computed."""
+    variants; pass ``states`` to reuse encoder states already computed;
+    ``cross_kv_dtype`` / ``self_kv_dtype`` select float8 KV storage."""
     if states is None:
         states = encoder_states(model, mel)
     prompt = default_prompt(config, language=language)
-    return greedy_decode(model, states, config, prompt=prompt, max_len=max_len, eot=eot)
+    return greedy_decode(model, states, config, prompt=prompt, max_len=max_len, eot=eot,
+                         cross_kv_dtype=cross_kv_dtype, self_kv_dtype=self_kv_dtype)
 
 
 def flatten_decoder_sequence(hidden: np.ndarray, lengths: np.ndarray) -> np.ndarray:

@@ -25,7 +25,10 @@ JAX model:
 
 Self-attention KV caches are (B, H, Tmax, Dh) for k (pre-scaled by
 Dh**-0.25) and v, and are updated IN PLACE by ``decode``; attention reads
-only the filled prefix [0, cache_index + T).
+only the filled prefix [0, cache_index + T). A cache (or a precomputed
+cross K/V) may be stored in float8 (the opt-in decode-bandwidth modes of
+the JAX model, ``model.py:98-130`` there): new k/v are cast into it from
+the compute dtype, and the attention products upcast at the read.
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
     return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
         np.float32
     )
+
+
+FLOAT8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def is_float8(dtype) -> bool:
+    """Whether ``dtype`` is a float8 storage dtype (the opt-in KV modes)."""
+    return dtype in FLOAT8_DTYPES
 
 
 def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -99,12 +110,21 @@ class MultiHeadAttention(nn.Module):
         if kv_cache is not None:
             ck, cv = kv_cache
             end = cache_index + Tq
-            ck[:, :, cache_index:end] = (k * scale).transpose(1, 2)
-            cv[:, :, cache_index:end] = v.transpose(1, 2)
+            k_new, v_new = (k * scale).transpose(1, 2), v.transpose(1, 2)
+            if is_float8(ck.dtype):
+                # the cache lives at the storage dtype: the new k/v are cast
+                # from the compute dtype (as the JAX model's astype) and
+                # written as bytes; the products below upcast at the read
+                ck.view(torch.uint8)[:, :, cache_index:end] = k_new.to(ck.dtype).view(torch.uint8)
+                cv.view(torch.uint8)[:, :, cache_index:end] = v_new.to(cv.dtype).view(torch.uint8)
+            else:
+                ck[:, :, cache_index:end] = k_new
+                cv[:, :, cache_index:end] = v_new
             k, v = ck[:, :, :end], cv[:, :, :end]
 
         if kv_cache is not None or xa_kv is not None:
-            # decode layout: k (B, H, Tk, Dh) pre-scaled, v (B, H, Tk, Dh)
+            # decode layout: k (B, H, Tk, Dh) pre-scaled, v (B, H, Tk, Dh),
+            # float8 storage (cross K/V or the self cache) upcast here
             qt = (q * scale).transpose(1, 2)
             logits = qt.float() @ k.float().transpose(-1, -2)
             if mask is not None:
