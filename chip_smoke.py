@@ -48,7 +48,13 @@ written at run time, batched beam search (K=5), the long-form ladder (and
 its beam rung with an initial prompt), ``extract --batched`` through float8
 KV caches beside the bf16 route (the JAX tests' bounds, teacher-forced),
 and whisper-tiny card against CPU (greedy tokens up to the CPU's first
-near-tie, teacher-forced logits, ``detect_language``). Every kernel is
+near-tie, teacher-forced logits, ``detect_language``). Phase 24 runs
+``extract --batched --quant-int8`` (the W8A8 int8 encoder: K1, K2, int8
+dense layers, no K3) over phase 21's split at large-v3-turbo beside the
+bf16 route, holds it against the f32 encoder with the JAX test's bounds
+and at whisper-tiny card against CPU, traces an extract with ``--profile``
+(the device's busy share), runs ``doctor`` and holds the mesh train step
+of a one-rank NCCL group against the plain step. Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -746,6 +752,8 @@ def main() -> int:
         # 23. transcription on phase 21's audio
         transcribe_launches = transcription_phase(tmp, dev, reset_counts, counts, smi)
         tally("23 transcription", transcribe_launches)
+        # 24. the int8 encoder over phase 21's split, --profile, doctor, NCCL
+        tally("24 int8 extract", quant_int8_phase(tmp, dev, reset_counts, counts, smi))
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
@@ -2659,6 +2667,266 @@ def transcription_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
     say(f"[23 transcription] large-v3-turbo, seeded weights, one build {build_s:.2f} s | {line_a} "
         f"| {line_b} | {line_c} | {line_d} | {line_e}; launches {launched}; phase "
         f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launched
+
+
+# phase 24a: the JAX quant test's bounds against the f32 encoder
+# (tests/test_quant_encoder.py:42,49)
+QUANT_REL_MAX, QUANT_COS_MIN = 0.08, 0.99
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def layer_outputs(encoder, mel) -> tuple:
+    """(the encoder's output, every block's output) as f32, by forward hooks."""
+    outs = []
+    hooks = [b.register_forward_hook(lambda m, i, o: outs.append(o.float()))
+             for b in encoder.blocks]
+    with torch.no_grad():
+        final = encoder(mel).float()
+    for h in hooks:
+        h.remove()
+    return final, outs
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def pooled_cos(got: torch.Tensor, want: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(got.mean(1), want.mean(1), dim=-1).min().item()
+
+
+def quant_int8_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
+    """24. On phase 21's audio project: a. ``extract --batched --kinds x_concat
+    --batch-size 32 --quant-int8`` at large-v3-turbo beside the bf16 route
+    (chunks/s less each command's build, the per-song cosine of the two),
+    the int8 encoder's relative hidden error and pooled cosine against the
+    f32 encoder on one 4-chunk batch (with each block's, and the bf16
+    encoder's for scale), the CLI's int8 weights and scales on the card
+    against the CPU's quantisation, and ``torch._int_mm`` on the weight's
+    two layouts beside the bf16 product at fc1's shape; b. whisper-tiny
+    ``--quant-int8`` card against CPU on the first 4 versions; c. ``extract
+    --batched --profile`` of 8 versions (the bf16 route, with the model of
+    a. so that the trace holds the extraction alone): the trace's K1/K2/K3
+    and the device's busy share of the command and of its batches; d.
+    ``doctor`` and a one-rank NCCL group: the mesh train step on phase 15's
+    project against the plain step. Returns the launches of the int8
+    command."""
+    import torch.distributed as dist
+
+    from wealy_tpu_torch.audio.decode import load_audio
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.cli import extract_batched
+    from wealy_tpu_torch.data.chunking import collate_fixed_length
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.losses import get_loss
+    from wealy_tpu_torch.models.registry import build_model
+    from wealy_tpu_torch.models.whisper import model as wmodel
+    from wealy_tpu_torch.models.whisper import quant as wquant
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wealy_tpu_torch.models.whisper.extract import chunk_waveform
+    from wealy_tpu_torch.ops.flash_attention import _reference_mha
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+    from wealy_tpu_torch.parallel.multihost import initialize_multihost
+    from wealy_tpu_torch.train.config import Config
+    from wealy_tpu_torch.train.loop import batch_to_device
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import make_train_step
+    from wealy_tpu_torch.utils.profiling import trace_device_busy, trace_files
+
+    t_phase = time.perf_counter()
+    lc, data = os.path.join(tmp, "lc"), os.path.join(tmp, "data")
+
+    def conf(name, size="large-v3-turbo"):
+        return write_config(os.path.join(tmp, f"q_{name}.json"), lc,
+                            os.path.join(tmp, f"hs_q_{name}"), os.path.join(tmp, f"cache_q_{name}"),
+                            whisper_size=size, data_root=data)
+
+    # a. int8 and bf16 over the split; each command's build timed where its
+    # factory makes it, and its model kept for the checks below
+    builds, kept = {}, {}
+
+    def timed(name, load):
+        def wrapped(*args, **kw):
+            t = time.perf_counter()
+            out = load(*args, **kw)
+            torch.cuda.synchronize()
+            builds[name], kept[name] = time.perf_counter() - t, out
+            return out
+        return wrapped
+
+    base = ["extract", "--split", "test", "--batched", "--kinds", "x_concat", "--batch-size", "32"]
+    with mock.patch.object(wquant, "load_quant_encoder", timed("int8", wquant.load_quant_encoder)), \
+            mock.patch.object(extract_batched, "load_whisper_model",
+                              timed("bf16", extract_batched.load_whisper_model)):
+        reset_counts()
+        q_out, q_s = run_cli(base + ["--config", conf("int8"), "--quant-int8"])
+        launched = counts()
+        b_out, b_s = run_cli(base + ["--config", conf("bf16")])
+    n_chunks = q_out["throughput"]["total_items"]
+    rate = {"int8": n_chunks / (q_s - builds["int8"]), "bf16": n_chunks / (b_s - builds["bf16"])}
+    check(q_out["done"] == b_out["done"] == len(SPLIT_AUDIO) and not q_out["incomplete"],
+          f"phase 24a int8 {q_out} bf16 {b_out}")
+    check(launched["log_mel"] > 0 and launched["flash_mha"] > 0 and launched["fused_mlp"] == 0,
+          f"phase 24a int8 command launches {launched} (K1, K2 above 0, K3 at 0)")
+    stores = {w: EmbeddingStore(os.path.join(tmp, f"hs_q_{w}"), "lyric-covers")
+              for w in ("int8", "bf16")}
+    versions = [str(2100 + i) for i in range(len(SPLIT_AUDIO))]
+    song_cos = [min_row_cos(*(torch.from_numpy(stores[w].load(v, "x_concat.npz")["embeddings"])
+                              for w in ("int8", "bf16"))) for v in versions]
+
+    cfg = WHISPER_CONFIGS["large-v3-turbo"]
+    t = time.perf_counter()
+    sd = wquant.f32_encoder_state_dict("large-v3-turbo")
+    qtree = wquant.quantize_encoder_state_dict(sd, cfg)
+    cpu_quant_s = time.perf_counter() - t
+    qenc = kept["int8"]
+    same_codes = all(
+        torch.equal(getattr(blk, n).weight.cpu(), torch.from_numpy(qtree["layers"][i][n]["w"]))
+        and torch.equal(getattr(blk, n).scale.cpu(), torch.from_numpy(qtree["layers"][i][n]["s"]))
+        for i, blk in enumerate(qenc.blocks) for n, _, _ in wquant.DENSE)
+    check(same_codes, "phase 24a int8 weights or scales on the card differ from the CPU's")
+
+    # one 4-chunk batch of the split's audio: int8 and bf16 against the f32
+    # encoder (plain f32 attention, TF32 off)
+    chunks = torch.cat([torch.from_numpy(chunk_waveform(load_audio(os.path.join(
+        data, "LyricCovers", "audio", v, f"{v}_audio.mp3")))) for v in ("2103", "2101")])[:4]
+    mel = log_mel_spectrogram_fused(chunks.float().to(dev), n_mels=cfg.n_mels)
+    f32 = wmodel.WhisperEncoder(cfg, dtype=torch.float32, device=dev)
+    f32.load_state_dict({k.removeprefix("encoder."): v for k, v in sd.items()})
+    with mock.patch.object(wmodel, "flash_mha", _reference_mha):
+        want, want_layers = layer_outputs(f32, mel)
+    got, got_layers = layer_outputs(qenc, mel)
+    bf16_model, _ = kept["bf16"]
+    bf, bf_layers = layer_outputs(bf16_model.encoder, mel)
+    del f32, sd, qtree
+    q_rel, q_cos = rel_err(got, want), pooled_cos(got, want)
+    b_rel, b_cos = rel_err(bf, want), pooled_cos(bf, want)
+    q_layers = [rel_err(g, w) for g, w in zip(got_layers, want_layers)]
+    b_layers = [rel_err(g, w) for g, w in zip(bf_layers, want_layers)]
+    check(q_rel < QUANT_REL_MAX and q_cos > QUANT_COS_MIN,
+          f"phase 24a int8 vs f32 relative error {q_rel:.4f} (< {QUANT_REL_MAX}), pooled cos "
+          f"{q_cos:.6f} (> {QUANT_COS_MIN}); by block {[round(x, 4) for x in q_layers]}")
+
+    # the int8 product on the weight's two layouts beside the bf16 product, at fc1's shape
+    a = torch.randint(-127, 128, (32 * 1500, cfg.n_audio_state), dtype=torch.int8, device=dev)
+    w = torch.randint(-127, 128, (4 * cfg.n_audio_state, cfg.n_audio_state), dtype=torch.int8,
+                      device=dev)
+    w_kn = w.t().contiguous()
+    ab, wb = a.bfloat16(), w.bfloat16()
+    mm = {"int8 (out, in).t()": cuda_ms(lambda: torch._int_mm(a, w.t()), 20),
+          "int8 (in, out) contiguous": cuda_ms(lambda: torch._int_mm(a, w_kn), 20),
+          "bf16": cuda_ms(lambda: ab @ wb.t(), 20)}
+    del a, w, w_kn, ab, wb
+    line_a = (f"a. large-v3-turbo x_concat B=32 over {len(versions)} versions ({n_chunks} "
+              f"chunks): int8 {q_s:.2f} s wall, build {builds['int8']:.2f} s, "
+              f"{rate['int8']:.2f} chunks/s less it (meter {q_out['throughput']['items_per_sec']})"
+              f"; bf16 {b_s:.2f} s, build {builds['bf16']:.2f} s, {rate['bf16']:.2f} chunks/s "
+              f"(meter {b_out['throughput']['items_per_sec']}); int8 / bf16 "
+              f"{rate['int8'] / rate['bf16']:.3f}; per-song cos int8 vs bf16 min "
+              f"{min(song_cos):.6f} mean {float(np.mean(song_cos)):.6f}; CPU quantisation "
+              f"{cpu_quant_s:.2f} s, card == CPU codes and scales {same_codes}; 4 chunks vs f32: "
+              f"int8 rel {q_rel:.4f} pooled cos {q_cos:.6f}, bf16 rel {b_rel:.4f} pooled cos "
+              f"{b_cos:.6f}; by block (int8 | bf16) "
+              f"{[round(x, 4) for x in q_layers[3::4]]} | {[round(x, 4) for x in b_layers[3::4]]}"
+              f"; _int_mm at ({32 * 1500}, {cfg.n_audio_state}) x ({cfg.n_audio_state}, "
+              f"{4 * cfg.n_audio_state}) ms {({k: round(v, 4) for k, v in mm.items()})}")
+    del qenc, bf16_model, kept["int8"]
+    torch.cuda.empty_cache()
+
+    # b. whisper-tiny int8, card against CPU, the first 4 versions
+    t = time.perf_counter()
+    tiny = {}
+    for where in ("cuda", "cpu"):
+        run_cli(["extract", "--config", conf(f"tiny_{where}", "tiny"), "--split", "test",
+                 "--batched", "--kinds", "x_concat", "--quant-int8", "--limit", "4",
+                 "--batch-size", "6", "--device", where])
+        tiny[where] = EmbeddingStore(os.path.join(tmp, f"hs_q_tiny_{where}"), "lyric-covers")
+    tiny_cos = min(min_row_cos(*(torch.from_numpy(tiny[w].load(v, "x_concat.npz")["embeddings"])
+                                 for w in ("cuda", "cpu"))) for v in versions[:4])
+    check(tiny_cos >= 0.999, f"phase 24b tiny int8 card vs CPU cos {tiny_cos:.6f}")
+    line_b = f"b. tiny int8 card vs CPU cos {tiny_cos:.6f} ({time.perf_counter() - t:.1f} s)"
+
+    # c. --profile of the bf16 route over 8 versions, with a.'s model
+    trace_dir = os.path.join(tmp, "trace")
+    model = extract_batched.load_whisper_model("large-v3-turbo", device=dev)
+    with mock.patch.object(extract_batched, "load_whisper_model", lambda *a, **k: model):
+        p_out, p_s = run_cli(["extract", "--config", conf("profile"), "--split", "test",
+                              "--batched", "--kinds", "x_concat", "--batch-size", "8",
+                              "--limit", "8", "--profile", trace_dir])
+    del model
+    files = trace_files(trace_dir)
+    check(len(files) == 1, f"phase 24c trace files {files}")
+    whole = trace_device_busy(files[0], span="wealy_tpu_torch.extract")
+    batches = trace_device_busy(files[0], span="extract.batch")
+    names = " ".join(whole["by_name"])
+    held = {k: k in names for k in ("log_mel_kernel", "flash_fwd_kernel", "mlp_gemm_kernel")}
+    check(held["log_mel_kernel"] and held["flash_fwd_kernel"] and p_out["done"] == 8,
+          f"phase 24c trace kernels {held}, extract {p_out}")
+    top = sorted(whole["by_name"].items(), key=lambda kv: -kv[1][0])[:4]
+    line_c = (f"c. --profile, 8 versions ({p_out['throughput']['total_items']} chunks, B=8) "
+              f"{p_s:.2f} s: trace {files[0].stat().st_size / 1e6:.1f} MB holds {held}; device "
+              f"busy {whole['busy_ms']:.2f} of {whole['window_ms']:.2f} ms of the command "
+              f"({100 * whole['busy_share']:.1f}%), {batches['busy_ms']:.2f} of "
+              f"{batches['window_ms']:.2f} ms from the first batch to the last "
+              f"({100 * batches['busy_share']:.1f}%); top "
+              f"{[(n[:40], round(v[0], 2), v[1]) for n, v in top]}")
+
+    # d. doctor; a one-rank NCCL group: the mesh step on phase 15's project
+    # against the plain step, deterministic algorithms on for both
+    t = time.perf_counter()
+    rep, doc_s = run_cli(["doctor", "--backend-timeout", "120"])
+    check(rep["ok"] and rep["backend"]["default_device"] == "cuda:0"
+          and rep["backend"]["dispatch"] == 8.0, f"phase 24d doctor {rep['backend']}")
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", timeout_s=120)
+    mesh = make_mesh(device="cuda")
+    with tempfile.TemporaryDirectory(prefix="wealy_dp_") as ptmp:
+        cpath, _ = write_project(ptmp, dev, train_cliques=16, val_cliques=4)
+        ds = EmbeddingDataset(Config.from_file(cpath), "train", seed=0)
+        host_batches = []
+        for _, brng, items in ds.sampler.epoch_batches(0, 16, 0):
+            host_batches.append(batch_to_device(collate_fixed_length(
+                items, chunk_size=1000, use_random_chunks=True, rng=brng)))
+            if len(host_batches) == 2:
+                break
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    for name, on in (("plain", None), ("mesh", mesh)):
+        model, _ = build_model("whisper", zdim=512, in_features=1280)
+        state = create_train_state(model.to(dev), tx=make_optimizer(lr=1e-3, warmup_steps=1,
+                                                                     max_steps=20), seed=0)
+        step = make_train_step(None, get_loss("clews"), mesh=on)
+        losses = []
+        for hb in host_batches:
+            feed = hb if on is not None else {k: v.to(dev) for k, v in hb.items()}
+            state, ld = step(state, feed)
+            losses.append(ld["loss"].item())
+        runs[name] = (losses, {k: v.clone() for k, v in state.params.items()})
+    torch.use_deterministic_algorithms(False)
+    dist.destroy_process_group()
+    bit_equal = runs["plain"][0] == runs["mesh"][0] and all(
+        torch.equal(runs["plain"][1][k], runs["mesh"][1][k]) for k in runs["plain"][1])
+    worst = max((runs["plain"][1][k] - runs["mesh"][1][k]).abs().max().item()
+                for k in runs["plain"][1])
+    close = np.allclose(runs["plain"][0], runs["mesh"][0], rtol=1e-5) and all(
+        torch.allclose(runs["mesh"][1][k], v, rtol=1e-5, atol=1e-7)
+        for k, v in runs["plain"][1].items())
+    check(close, f"phase 24d one-rank NCCL mesh step vs plain: losses {runs}, max |d| {worst}")
+    line_d = (f"d. doctor ok on {rep['backend']['default_device']} ({rep['backend']['names']}, "
+              f"{doc_s:.1f} s); one-rank NCCL mesh step vs plain, 2 steps on phase 15's project: "
+              f"{'bit-equal' if bit_equal else 'max |d| %.3g' % worst}, losses "
+              f"{runs['mesh'][0]} ({time.perf_counter() - t:.1f} s)")
+    say(f"[24 int8 encoder, --profile, doctor, NCCL] {line_a} | {line_b} | {line_c} | {line_d}; "
+        f"launches of the int8 command {launched}; phase {time.perf_counter() - t_phase:.1f} s "
+        f"| {smi}")
     return launched
 
 if __name__ == "__main__":

@@ -79,3 +79,92 @@ def write_toy_vocab(path, special: dict = None, words: int = 0):
         "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in TOY_MERGES) + "\n")
     (path / "special_tokens.json").write_text(json.dumps(special))
     return path
+
+
+def write_audio_project(root, songs: dict = None, sr: int = 16000):
+    """A lyric-covers project under ``root`` (the layout of
+    tests/test_torch_extract_split.py: stdlib CSVs, 16 kHz 16-bit WAV bytes
+    under the layout's .mp3 names): ``songs`` {version id: seconds} in one
+    train clique (default a 20 s and a 35 s song), one clique of two
+    versions without audio in val and test. Returns ``conf(name)``, which
+    writes a dev-size Whisper config whose store is ``root / name`` and
+    returns its path."""
+    import csv
+    import json
+    import wave
+
+    songs = songs or {"100": 20, "101": 35}
+    (root / "lc").mkdir(parents=True, exist_ok=True)
+    keys = list(songs)
+    rows = {"train": [(int(keys[0]), int(k), i > 0, "c" if i else "o", "A")
+                      for i, k in enumerate(keys)],
+            "val": [(300, 300, False, "o", "C"), (300, 301, True, "c", "C")],
+            "test": [(400, 400, False, "o", "D"), (400, 401, True, "c", "D")]}
+    for split, data in rows.items():
+        with open(root / "lc" / f"{split}_no_dup.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["original_id", "id", "is_cover", "song_text_type", "label"])
+            w.writerows(data)
+    rng = np.random.default_rng(0)
+    for key, seconds in songs.items():
+        path = root / "data" / "LyricCovers" / "audio" / key / f"{key}_audio.mp3"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        x = 0.1 * rng.normal(size=int(seconds * sr))
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+    def conf(name):
+        path = root / f"{name}.json"
+        path.write_text(json.dumps({
+            "path": {"lyric_covers_data": str(root / "lc"), "hidden_states": str(root / name),
+                     "cache": str(root / f"cache_{name}"), "data": str(root / "data")},
+            "data": {"dataset_name": "lyric-covers", "embedding_type": "last_hidden_states",
+                     "embedding_format": "concat"},
+            "model": {"name": "whisper", "zdim": 16, "whisper_size": "dev"},
+        }))
+        return str(path)
+
+    return conf
+
+
+def write_embedding_project(root, train: dict = None) -> str:
+    """A head-training project under ``root``: eight versions in four
+    cliques per split, each a (40, 24) fp16 ``hs_last_seq``, chunks of 16
+    frames, a ``whisper`` head of zdim 8 and checkpoints in ``root /
+    ckpt``; ``train`` updates the config's ``train`` keys. Returns the
+    config's path."""
+    import csv
+    import json
+
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+
+    (root / "lc").mkdir()
+    store = EmbeddingStore(root / "hs", "lyric-covers")
+    rng = np.random.default_rng(0)
+    vid = 100
+    for split in ("train", "val", "test"):
+        with open(root / "lc" / f"{split}_no_dup.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["original_id", "id", "is_cover", "song_text_type", "label"])
+            for c in range(4):
+                first = vid
+                for k in range(2):
+                    w.writerow([first, vid, k > 0, "o", f"{split}{c}"])
+                    store.save(str(vid), "hs_last_seq.npz",
+                               embeddings=rng.normal(size=(40, 24)).astype(np.float16))
+                    vid += 1
+    cpath = root / "conf.json"
+    cpath.write_text(json.dumps({
+        "path": {"lyric_covers_data": str(root / "lc"), "hidden_states": str(root / "hs"),
+                 "cache": str(root / "cache"), "checkpoints": str(root / "ckpt")},
+        "data": {"dataset_name": "lyric-covers", "embedding_type": "last_hidden_states",
+                 "embedding_format": "concat", "chunk_size": 16, "overlap_percentage": 0.5},
+        "model": {"name": "whisper", "zdim": 8},
+        "train": {"loss": "clews", "batch_size": 4, "lr": 1e-3, "warmup_steps": 1,
+                  "max_steps": 2, "log_every": 0, "eval_every": 1000,
+                  "checkpoint_every": 1000, **(train or {})},
+    }))
+    return str(cpath)

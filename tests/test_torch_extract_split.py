@@ -347,13 +347,37 @@ def test_what_is_not_ported_names_its_item(project, flags, item, capsys):
         emb = seq["embeddings"]
         assert emb.ndim == 2 and emb.shape[1] == 64 and np.isfinite(emb).all()
         return
+    if "--quant-int8" in flags:
+        # ported with item 6a: the int8 encoder stores x_concat (held against
+        # the JAX CLI in tests/test_torch_quant.py)
+        assert port_main(argv + ["--limit", "1", "--kinds", "x_concat", "--overwrite"]) == 0
+        out = _json_line(capsys)
+        assert out["done"] == 1 and out["incomplete"] == []
+        emb = EmbeddingStore(project / "unported", "lyric-covers").load("100", "x_concat.npz")
+        assert emb["embeddings"].shape == (1, 64) and np.isfinite(emb["embeddings"]).all()
+        return
+    if "--profile" in flags:
+        # ported with item 6b: a torch.profiler trace of the whole command
+        # (tests/test_torch_profiling.py)
+        trace_dir = project / "unported_trace"
+        argv[argv.index("trace_dir")] = str(trace_dir)
+        assert port_main(argv + ["--limit", "1", "--kinds", "x_concat", "--overwrite"]) == 0
+        assert _json_line(capsys)["done"] == 1
+        assert list(trace_dir.glob("*.pt.trace.json"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         port_main(argv)
 
 
 def test_embed_factories_name_their_items(project):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        TEB.make_encoder_embed_fn(None, quant_int8=True, device="cpu")
+    # the int8 encoder came with item 6a: the factory builds and embeds
+    config = Config.from_dict(_conf(project, "int8_factory"))
+    embed = TEB.make_encoder_embed_fn(config, quant_int8=True, device="cpu")
+    z = embed(np.zeros((2, 480000), np.float32))
+    assert z.shape == (2, 64) and z.dtype == torch.bfloat16 and bool(torch.isfinite(z).all())
+    # the mesh and tensor-parallel decoders wait for item 6d
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6d"):
+        TEB.make_decoder_embed_fn(config, tp=2, device="cpu")
     # the float8 KV modes came with item 5: the factory builds and decodes
     config = Config.from_dict(_conf(project, "f8_factory"))
     fn = TEB.make_decoder_embed_fn(config, cross_kv_f8=True, self_kv_f8=True, max_len=6,

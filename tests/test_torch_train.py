@@ -224,14 +224,27 @@ def test_step_arguments_the_port_does_not_take_yet():
     state = _port_head_state(ProjectionHead(C, zdim=16, hidden=(16,)).state_dict())
     with pytest.raises(ValueError, match="not divisible"):
         make_train_step(None, clews_loss, grad_accum=3)(state, dict(_head_batch()))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_train_step(None, clews_loss, mesh=object())
+    # the mesh step came with the parallel/ slice (two ranks:
+    # tests/test_torch_parallel.py); on a one-rank mesh it is the plain step
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    plain = _port_head_state(ProjectionHead(C, zdim=16, hidden=(16,)).state_dict())
+    sd = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    on_mesh = _port_head_state(sd)
+    for _ in range(2):
+        plain, lp = make_train_step(None, clews_loss)(plain, dict(_head_batch()))
+        on_mesh, lm = make_train_step(None, clews_loss, mesh=mesh)(on_mesh, dict(_head_batch()))
+        assert float(lm["loss"]) == float(lp["loss"])
+    _assert_params(on_mesh.params, {k: v.detach() for k, v in plain.params.items()}, 0, 0)
     # the BatchNorm step is ported (tests/test_torch_clews.py); what it
     # refuses is what JAX refuses: grad_accum with BatchNorm
     with pytest.raises(ValueError, match="grad_accum"):
         make_train_step(None, clews_loss, with_batch_stats=True, grad_accum=2)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_eval_embed_step(None, mesh=object())
+    batch = upcast_batch(_head_batch())
+    embed = make_eval_embed_step(plain.model, mesh=mesh)
+    assert torch.equal(embed(batch["emb"], batch["mask"]),
+                       make_eval_embed_step(plain.model)(batch["emb"], batch["mask"]))
 
 
 def test_upcast_batch_and_eval_embed_step():
@@ -491,8 +504,19 @@ def test_fit_on_the_cli_project(project):  # noqa: F811
     with pytest.raises(ValueError, match="no batches"):
         fit(state, step, ds.sampler, batch_size=10 * len(ds.sampler.versions), chunk_size=8,
             max_steps=8)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        fit(state, step, ds.sampler, mesh=object())
+    # fit on a one-rank mesh takes the same steps (two ranks:
+    # tests/test_torch_parallel.py)
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+
+    runs = []
+    for mesh in (None, make_mesh(device="cpu")):
+        s0 = create_train_state(ProjectionHead(24, zdim=16, hidden=(16,)),
+                                make_optimizer(lr=3e-3, warmup_steps=1, max_steps=6))
+        _, wm = fit(s0, make_train_step(None, clews_loss, mesh=mesh), ds.sampler, batch_size=4,
+                    chunk_size=8, max_steps=3, writer=MetricsWriter(log_every=0),
+                    data_seed=config.train.seed, mesh=mesh)
+        runs.append([h["loss"] for h in wm.history])
+    assert runs[0] == runs[1] and len(runs[0]) == 3
 
 
 def test_batch_to_device_layout():

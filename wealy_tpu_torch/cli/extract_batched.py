@@ -22,7 +22,8 @@ rows to ``batch_size``, so the embed function sees one shape.
 The embed functions of the split jobs and of the query path:
 
 - :func:`make_encoder_embed_fn`: mel (K1) -> encoder (K2/K3) -> mean pool,
-  one ``x_concat`` row per 30 s chunk;
+  one ``x_concat`` row per 30 s chunk (``quant_int8``: the W8A8 encoder of
+  ``models/whisper/quant.py``, K1 and K2 with int8 dense layers);
 - :func:`make_decoder_embed_fn`: mel -> encoder -> greedy decode ->
   (decoder last hidden states, lengths), the ``hs_last_*`` kinds;
 - :func:`make_wealy_embed_fn`: mel -> encoder -> bf16 ``ProjectionHead``.
@@ -31,8 +32,8 @@ Each builds the Whisper model once (``model.whisper_size``, weights from an
 openai-whisper/HF checkpoint or the seeded init of ``load_whisper_model``)
 and returns ``fn(audio)`` for a (B, 480000) batch of 16 kHz chunks. The
 decoder factory takes the float8 KV modes (``cross_kv_f8``,
-``self_kv_f8``); the int8 encoder and the mesh and tensor-parallel paths
-(ROADMAP item 6) raise ``NotImplementedError``.
+``self_kv_f8``); the mesh and tensor-parallel paths (ROADMAP item 6d)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from wealy_tpu_torch.audio.mel import N_SAMPLES
 from wealy_tpu_torch.cli.extract import load_whisper_model
 from wealy_tpu_torch.models.whisper.extract import chunk_waveform
 from wealy_tpu_torch.utils.prefetch import prefetch
-from wealy_tpu_torch.utils.profiling import ThroughputMeter
+from wealy_tpu_torch.utils.profiling import ThroughputMeter, trace_span
 
 
 @dataclasses.dataclass
@@ -138,7 +139,7 @@ def _schedule(config, metadata, split: str, filename: str, limit, overwrite, ski
 def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: a batch sharded over several cards waits for ROADMAP item 6; the port "
+            "mesh: a batch sharded over several cards waits for ROADMAP item 6d; the port "
             "extracts on one card"
         )
 
@@ -208,8 +209,8 @@ def extract_split_batched(
     buf = np.zeros((batch_size, N_SAMPLES), np.float32)
 
     for batch in _batches(ds, batch_size, n_workers):
-        out = embed_fn(_padded(batch, buf))
-        z = _host(out)[: len(batch)]
+        with trace_span("extract.batch"):
+            z = _host(embed_fn(_padded(batch, buf)))[: len(batch)]
         meter.tick(len(batch))
         for (version_key, chunk_idx, n_chunks, _), emb in zip(batch, z):
             acc = accs.get(version_key)
@@ -269,8 +270,9 @@ def extract_split_batched_decoder(
     buf = np.zeros((batch_size, N_SAMPLES), np.float32)
 
     for batch in _batches(ds, batch_size, n_workers):
-        hidden, lengths = decode_fn(_padded(batch, buf))
-        hidden = _host(hidden)[: len(batch)]
+        with trace_span("extract.batch"):
+            hidden, lengths = decode_fn(_padded(batch, buf))
+            hidden = _host(hidden)[: len(batch)]
         lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
         meter.tick(len(batch))
         for (version_key, chunk_idx, n_chunks, _), hid, L in zip(batch, hidden, lengths):
@@ -294,7 +296,7 @@ def extract_split_batched_decoder(
 
 
 # the ROADMAP item each option of the embed factories waits for
-_ITEM = {"quant_int8": 6, "mesh": 6, "tp": 6}
+_ITEM = {"mesh": "6d", "tp": "6d"}
 
 
 def _refuse(**options) -> None:
@@ -313,9 +315,22 @@ def _chunks(audio, device) -> torch.Tensor:
 def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int8: bool = False,
                           device=None, dtype=torch.bfloat16):
     """``fn(audio (B, 480000)) -> (B, D)``: the mean over time of the
-    encoder states, in the model's dtype, on ``device``."""
-    _refuse(quant_int8=quant_int8)
+    encoder states, in the model's dtype, on ``device``. ``quant_int8``:
+    the W8A8 int8 encoder (``models/whisper/quant.py``), quantised from the
+    f32 weights of the checkpoint or the seeded draw."""
     device = resolve_device(device)
+    if quant_int8:
+        from wealy_tpu_torch.models.whisper.quant import load_quant_encoder
+
+        qenc = load_quant_encoder(config.model.whisper_size, checkpoint=hf_checkpoint,
+                                  device=device, dtype=dtype)
+
+        @torch.inference_mode()
+        def embed_q(audio):
+            mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=qenc.config.n_mels)
+            return qenc(mel).mean(dim=1)
+
+        return embed_q
     model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
                                      device=device, dtype=dtype)
 

@@ -1,22 +1,26 @@
 """Command-line entry of the port: ``validate-data``, ``extract``,
-``transcribe``, ``pack``, ``train``, ``evaluate``, and the serving commands
-``index``, ``query`` and ``serve``.
+``transcribe``, ``pack``, ``train``, ``evaluate``, the serving commands
+``index``, ``query`` and ``serve``, and ``doctor``.
 
     python -m wealy_tpu_torch.cli.main validate-data --config conf.json
     python -m wealy_tpu_torch.cli.main extract --config conf.json --split train \\
         [--kinds x_concat,hs_last_seq|hs_clews] [--batched [--batch-size N] [--pack-direct]] \\
-        [--pack] [--cross-kv-f8] [--self-kv-f8]
+        [--pack] [--cross-kv-f8] [--self-kv-f8] [--quant-int8] [--profile DIR]
     python -m wealy_tpu_torch.cli.main transcribe --config conf.json --split train \\
         [--tokenizer-dir DIR] [--greedy [--batched [--batch-size N]]] [--beam-size K] \\
         [--initial-prompt TEXT] [--language L] [--max-len N] [--limit N] [--overwrite]
     python -m wealy_tpu_torch.cli.main pack --config conf.json [--split test] [--kind F.npz]
-    python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh]
+    python -m wealy_tpu_torch.cli.main train --config conf.json [--max-steps N] [--fresh] \\
+        [--profile DIR]
+    torchrun --nproc-per-node N -m wealy_tpu_torch.cli.main train --config conf.json
     python -m wealy_tpu_torch.cli.main evaluate --config conf.json --split test \\
-        [--redux bpwr] [--streaming [--chunk-sets]] [--test-mode] [--checkpoint PATH]
+        [--redux bpwr] [--streaming [--chunk-sets]] [--test-mode] [--checkpoint PATH] \\
+        [--profile DIR]
     python -m wealy_tpu_torch.cli.main index --config conf.json --split test --out idx.npz
     python -m wealy_tpu_torch.cli.main query --config conf.json --index idx.npz \\
         (--audio A.wav ... | --query-embeddings Q.npz ...) [--rerank R] [--quantize int8]
     python -m wealy_tpu_torch.cli.main serve --config conf.json --index idx.npz [--port P]
+    python -m wealy_tpu_torch.cli doctor [--config conf.json] [--backend-timeout S]
 
 The counterpart of ``wealy_tpu.cli.main`` for these commands, with the JAX
 parser's flags plus ``--device {cuda,cpu}`` (default ``cuda``: without a
@@ -30,8 +34,9 @@ the window encoder (``models/clews_extract.py``; seeded torch weights).
 ``extract --batched`` of a decoder kind takes ``--cross-kv-f8`` /
 ``--self-kv-f8`` (float8 storage of the decode's cross K/V and self caches;
 the one-song-at-a-time path ignores them, as the JAX CLI does).
-``extract``'s ``--quant-int8``, ``--tp`` above 1 and ``--profile`` (ROADMAP
-item 6) are parsed and raise ``NotImplementedError``.
+``extract --batched --quant-int8`` runs the W8A8 int8 encoder
+(``models/whisper/quant.py``) for the encoder kind; ``--tp`` above 1
+(ROADMAP item 6d) is parsed and raises ``NotImplementedError``.
 ``transcribe`` writes the reference's ``.txt`` trees and the validity
 census (``cli/transcribe.py``): Whisper's long-form algorithm by default,
 ``--greedy`` per-chunk decoding (``--batched``: chunks of many songs per
@@ -42,6 +47,11 @@ datasets and collates) with the configured loss (clews, ntxent, triplet),
 AdamW, ``train.grad_accum``, the val-split MAP hook every
 ``train.eval_every`` steps and ``torch.save`` checkpoints in
 ``path.checkpoints`` (resumed unless ``--fresh``); it prints one JSON line.
+Launched with a world size above 1 (``torchrun``), ``train`` runs data
+parallel, one process a card (``parallel/``): the state is broadcast from
+rank 0, each rank embeds its rows of every batch, the loss runs over the
+gathered global batch, and only rank 0 writes checkpoints, metrics and the
+JSON line.
 ``evaluate --checkpoint`` takes a head state-dict file, a ``train``
 checkpoint payload, or a checkpoint directory (its newest step); the JAX
 package's orbax directories need JAX to read. Without one the head is
@@ -52,7 +62,10 @@ one fused vector per song by cosine, or with ``--test-mode`` every chunk of
 a song (WEALY chunks, or overlapping whisper windows) as a chunk set
 through ``--redux`` (K4 for ``bpwr``); ``--test-mode`` leaves the
 ``whisper`` head's evaluate as it is, as in JAX. The serving commands live
-in :mod:`wealy_tpu_torch.cli.serve`; ``--profile`` comes with item 6.
+in :mod:`wealy_tpu_torch.cli.serve`. ``--profile DIR`` (``extract``,
+``train``, ``evaluate``) writes a ``torch.profiler`` trace of the whole
+command into DIR. ``doctor`` prints one JSON report of the environment, the
+card and a project (:mod:`wealy_tpu_torch.cli.doctor`).
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import sys
 from pathlib import Path
 from typing import Optional
@@ -135,10 +149,7 @@ def cmd_validate_data(args) -> int:
 def _refuse_unported(args, kind: str) -> None:
     """``extract`` options the port parses but does not run yet: each raises
     naming its ROADMAP item."""
-    items = {
-        "--profile": (args.profile, 6), "--tp": (args.tp > 1, 6),
-        "--quant-int8": (args.quant_int8, 6),
-    }
+    items = {"--tp": (args.tp > 1, "6d")}
     on = [f"{name} (ROADMAP item {item})" for name, (set_, item) in items.items() if set_]
     if on:
         raise NotImplementedError(f"extract: not in this port yet: {', '.join(on)}")
@@ -249,7 +260,7 @@ def cmd_extract(args) -> int:
                     config, args.hf_checkpoint, device=device))
             else:
                 embed_fn = _lazy(lambda: eb.make_encoder_embed_fn(
-                    config, args.hf_checkpoint, device=device))
+                    config, args.hf_checkpoint, quant_int8=args.quant_int8, device=device))
             result = eb.extract_split_batched(config, md, args.split, embed_fn, **common)
     if writer is not None:
         packed = writer.close()
@@ -541,7 +552,10 @@ def make_val_eval_fn_mm(config, model, model_call, val_ds, sig: str, val_group: 
 
 def cmd_train(args) -> int:
     """Train the head on stored embeddings; one JSON line
-    ``{"final_step", "final_loss"}``."""
+    ``{"final_step", "final_loss"}``. Launched with a world size above 1
+    (``torchrun``), every process trains one replica on its card (gloo
+    with ``--device cpu``) over a data-parallel mesh, as the JAX command
+    builds a mesh over several devices."""
     from wealy_tpu_torch.data.collate_factory import create_collate_fn
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.losses import get_loss
@@ -556,7 +570,8 @@ def cmd_train(args) -> int:
     from wealy_tpu_torch.train.state import create_train_state, make_optimizer
     from wealy_tpu_torch.train.step import make_train_step
 
-    device = resolve_device(args.device)
+    mesh = _train_mesh(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     config = _load_config(args.config)
     sig = model_signature(config.model.name)
     torch.autograd.set_detect_anomaly(bool(config.train.debug_nans))
@@ -583,7 +598,7 @@ def cmd_train(args) -> int:
                           max_steps=config.train.max_steps),
         seed=config.train.seed,
     )
-    step = make_train_step(model, loss_fn, model_call=model_call,
+    step = make_train_step(model, loss_fn, mesh=mesh, model_call=model_call,
                            grad_accum=config.train.grad_accum)
     ckpt = CheckpointManager(config.path.checkpoints) if config.path.checkpoints else None
     start_epoch = start_batch = 0
@@ -596,6 +611,11 @@ def cmd_train(args) -> int:
             start_batch = int(dstate.get("next_batch", 0))
         print(f"resumed full state from step {state.step} (epoch {start_epoch}, batch "
               f"{start_batch})", file=sys.stderr)
+    if mesh is not None:
+        from wealy_tpu_torch.parallel.mesh import replicate_state
+
+        replicate_state(mesh, state)  # every replica starts from rank 0's state
+    primary = mesh is None or mesh.is_primary
     eval_fn = None
     val_group = int(config.train.val_group) or max(4, int(config.train.batch_size))
     if sig == "single":
@@ -607,8 +627,8 @@ def cmd_train(args) -> int:
         if len(val_ds) >= 4:
             eval_fn = make_val_eval_fn_mm(config, model, model_call, val_ds, sig,
                                           val_group=val_group, device=device)
-    writer = MetricsWriter(log_every=config.train.log_every,
-                           jsonl_path=config.train.metrics_jsonl or None)
+    writer = MetricsWriter(log_every=config.train.log_every if primary else 0,
+                           jsonl_path=(config.train.metrics_jsonl or None) if primary else None)
     state, writer = fit(
         state, step, ds.sampler,
         batch_size=config.train.batch_size,
@@ -623,12 +643,31 @@ def cmd_train(args) -> int:
         start_epoch=start_epoch,
         start_batch=start_batch,
         make_batch=make_batch,
+        mesh=mesh,
     )
     writer.close()
     # the last record may be a val_* entry: report the last train loss
     last = next((h for h in reversed(writer.history) if "loss" in h), {})
-    print(json.dumps({"final_step": int(state.step), "final_loss": last.get("loss")}))
+    if primary:
+        print(json.dumps({"final_step": int(state.step), "final_loss": last.get("loss")}))
+    if mesh is not None:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
     return 0
+
+
+def _train_mesh(device: str):
+    """The data-parallel mesh of a ``train`` launched with a world size
+    above 1 (``torchrun``: NCCL on the cards, gloo with ``--device cpu``),
+    else None: one process, no mesh."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+    from wealy_tpu_torch.parallel.multihost import initialize_multihost
+
+    resolve_device(device)  # the no-card refusal comes first
+    initialize_multihost(backend="gloo" if device == "cpu" else "nccl")
+    return make_mesh(device=device)
 
 
 def evaluate(args) -> dict:
@@ -806,8 +845,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     e = sub.add_parser("extract", help="extract Whisper embeddings to the store")
     e.add_argument("--config", required=True)
-    e.add_argument("--profile", default=None, metavar="DIR",
-                   help="device trace of the command (ROADMAP item 6; raises here)")
+    _add_profile(e)
     e.add_argument("--split", default="train")
     e.add_argument("--kinds", default="x_concat,hs_last_seq")
     e.add_argument("--hf-checkpoint", default=None,
@@ -825,7 +863,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batched extraction writes straight to the mmap pack (no per-version "
                    "npz); a resume carries the old pack forward. Not for hs_last_all")
     e.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (ROADMAP item 6; above 1 raises here)")
+                   help="tensor-parallel degree (ROADMAP item 6d; above 1 raises here)")
     e.add_argument("--self-kv-f8", action="store_true",
                    help="store the decode's self-attention KV caches in float8 (--batched "
                    "decoder kinds)")
@@ -833,7 +871,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="store the decode's cross-attention K/V in float8 (--batched decoder "
                    "kinds)")
     e.add_argument("--quant-int8", action="store_true",
-                   help="W8A8 int8 encoder (ROADMAP item 6; raises here)")
+                   help="W8A8 int8 encoder: int8 dense layers with per-token activation "
+                   "scales (--batched, x_concat only)")
     _add_device(e)
     e.set_defaults(fn=cmd_extract)
 
@@ -850,6 +889,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--max-steps", type=int, default=None)
     tr.add_argument("--fresh", action="store_true",
                     help="ignore existing checkpoints in path.checkpoints")
+    _add_profile(tr)
     _add_device(tr)
     tr.set_defaults(fn=cmd_train)
 
@@ -878,10 +918,29 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --streaming: exact chunk-set --redux ranking streamed in blocks instead "
         "of chunk-pooled song vectors",
     )
+    _add_profile(ev)
     _add_device(ev)
     ev.set_defaults(fn=cmd_evaluate)
     _add_serving_parsers(sub)
+
+    from wealy_tpu_torch.cli.doctor import cmd_doctor
+
+    dr = sub.add_parser("doctor", help="environment + card + project diagnostics (one JSON "
+                        "report; the card's probe runs in a child process under a deadline)")
+    dr.add_argument("--config", default=None,
+                    help="also check the project this config points at")
+    dr.add_argument("--backend-timeout", type=float, default=30.0,
+                    help="seconds to wait for the card's probe (discovery + one dispatch)")
+    dr.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the device to probe (default: the card; cpu probes the host)")
+    dr.set_defaults(fn=cmd_doctor)
     return p
+
+
+def _add_profile(parser) -> None:
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the whole command (host and "
+                        "card) into DIR")
 
 
 def _add_transcribe_parser(sub) -> None:
@@ -1003,6 +1062,13 @@ def main(argv=None) -> int:
         from wealy_tpu_torch.utils.hostmem import pin_malloc_thresholds
 
         pin_malloc_thresholds()
+    if getattr(args, "profile", None):
+        # a Chrome / TensorBoard trace of the whole command, written on an
+        # error too
+        from wealy_tpu_torch.utils.profiling import profiled
+
+        with profiled(args.profile, f"wealy_tpu_torch.{args.command}"):
+            return args.fn(args)
     return args.fn(args)
 
 

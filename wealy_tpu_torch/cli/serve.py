@@ -35,7 +35,7 @@ signature or the greedy decode's ``hs_last_seq`` for the two-stream one. As
 in JAX, a fusion engine refuses ``--rerank``, ``--quantize`` and
 embedding queries.
 
-Not in this slice: ``--shard`` over more than one card (ROADMAP item 6).
+Not in this slice: ``--shard`` over more than one card (ROADMAP item 6d).
 """
 
 from __future__ import annotations
@@ -696,9 +696,9 @@ def _quantize_int8(sets: np.ndarray, rows: int = 65536):
 
 def _serving_mesh(args):
     """None: the corpus lives on one card. ``--shard`` with more than one
-    local card raises (ROADMAP item 6)."""
+    local card raises (ROADMAP item 6d)."""
     if getattr(args, "shard", False) and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--shard over several cards is ROADMAP item 6; this port "
+        raise NotImplementedError("--shard over several cards is ROADMAP item 6d; this port "
                                   "serves from one card")
     return None
 

@@ -183,7 +183,7 @@ def make_transcribe_fn(config, hf_checkpoint=None, *, language: Optional[int] = 
     greedy decode, or beam search with ``beam_size`` > 1 (the beams of each
     chunk ride the batch). ``fn(audio (B, 480000)) -> (tokens (B,
     max_len), lengths (B,))`` on ``device``; ``fn.prompt_len`` is the
-    prompt's length. A mesh over several cards waits for ROADMAP item 6."""
+    prompt's length. A mesh over several cards waits for ROADMAP item 6d."""
     _check_mesh(mesh)
     device = resolve_device(device)
     model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,

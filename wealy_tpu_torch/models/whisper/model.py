@@ -334,21 +334,32 @@ class Whisper(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Whisper":
-        """Seeded random init: Dense/conv weights N(0, 1/fan_in), biases 0,
-        LayerNorm 1/0, token embedding N(0, 0.02), decoder positions N(0,
-        0.01), the encoder position table the exact sinusoids. The numbers
-        are drawn on ``generator``'s device and copied to the parameters', so
-        a CPU generator gives every device the same weights."""
+        """Seeded random init (:meth:`seeded_weights`) copied into the
+        parameters."""
+        params = dict(self.named_parameters())
+        for name, value in self.seeded_weights(generator):
+            params[name].copy_(value)
+        return self
+
+    def seeded_weights(self, generator: torch.Generator):
+        """(name, f32 value) of every parameter in ``named_parameters``
+        order, the encoder's first: Dense/conv weights N(0, 1/fan_in),
+        biases 0, LayerNorm 1/0, token embedding N(0, 0.02), decoder
+        positions N(0, 0.01), the encoder position table the exact
+        sinusoids. The numbers are drawn on ``generator``'s device, so a CPU
+        generator gives every device the same weights; only the parameters'
+        shapes are read (a ``meta`` model gives the f32 draw without
+        holding the model)."""
         ln_weights = {
             id(m.weight) for m in self.modules() if isinstance(m, nn.LayerNorm)
         }
         for name, p in self.named_parameters():
             if name.endswith("bias"):
-                p.zero_()
+                yield name, torch.zeros(p.shape)
             elif id(p) in ln_weights:
-                p.fill_(1.0)
+                yield name, torch.ones(p.shape)
             elif name == "encoder.positional_embedding":
-                p.copy_(torch.from_numpy(sinusoids(*p.shape)))
+                yield name, torch.from_numpy(sinusoids(*p.shape))
             else:
                 if name == "decoder.token_embedding.weight":
                     std = 0.02
@@ -359,5 +370,4 @@ class Whisper(nn.Module):
                 noise = torch.randn(
                     p.shape, generator=generator, device=generator.device, dtype=torch.float32
                 )
-                p.copy_(noise * std)
-        return self
+                yield name, noise * std

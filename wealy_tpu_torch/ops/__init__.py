@@ -1,8 +1,31 @@
-"""Kernels of the encoder: fused attention (K2, backward K5a/K5b) and fused MLP (K3)."""
+"""The numeric ops of the port: the kernels' wrappers (``log_mel`` lives in
+``audio/``; here fused attention K2 with its backward K5a/K5b, the fused MLP
+K3, LayerNorm K6, the chunk-set scorer K4) and the plain torch equivalents of
+the reference's lib/tensor_ops.py, exported here as ``wealy_tpu.ops``
+exports them. Mask convention of the masked ops: True = excluded (the
+layers' opposite convention converts through ``utils/masks.py``). Below,
+the tolerances that hold K2, K3 and K5 against their plain versions."""
 
 from __future__ import annotations
 
 import torch
+
+from wealy_tpu_torch.ops.masked import mbest, mmax, mmean, mmin, mrand, msum, mworst
+from wealy_tpu_torch.ops.distance import (
+    pairwise_distance_matrix,
+    pairwise_euclidean_distance_matrix,
+)
+from wealy_tpu_torch.ops.framing import force_length, frames, get_frames
+from wealy_tpu_torch.ops.redux import distance_tensor_redux
+from wealy_tpu_torch.ops.misc import check_finite, covariance, roughly_equal, tensor_quantile
+
+__all__ = [
+    "msum", "mmean", "mmin", "mmax", "mrand", "mbest", "mworst",
+    "pairwise_euclidean_distance_matrix", "pairwise_distance_matrix",
+    "force_length", "frames", "get_frames", "distance_tensor_redux",
+    "tensor_quantile", "covariance", "roughly_equal", "check_finite",
+    "BF16_COS_MIN", "BF16_REL_ABS", "BF16_GRAD_COS_MIN", "NOISE_ROW_FLOOR", "bf16_agreement",
+]
 
 # How close K2 and K3 must come to their plain versions: bf16 outputs whose
 # sums run in another order, so a per-row cosine and a max-abs bound relative

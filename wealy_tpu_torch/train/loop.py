@@ -15,6 +15,7 @@ from wealy_tpu_torch.data.chunking import collate_fixed_length
 from wealy_tpu_torch.data.sampler import CliqueSampler
 from wealy_tpu_torch.train.state import TrainState
 from wealy_tpu_torch.utils.prefetch import prefetch
+from wealy_tpu_torch.utils.profiling import trace_span
 
 
 class MetricsWriter:
@@ -117,19 +118,23 @@ def fit(
     the end. An epoch with no batch (fewer items than ``batch_size``)
     raises. ``make_batch(items, batch_rng) -> dict`` of arrays replaces the
     single-modal collate (the fusion models' collate and
-    ``train/multimodal.py::flatten_multimodal_batch``). ``mesh``
-    (multi-device) comes with the ``parallel/`` slice.
+    ``train/multimodal.py::flatten_multimodal_batch``). ``mesh`` (the
+    data-parallel mesh of ``parallel/mesh.py``): every rank draws the same
+    seeded global batches, which stay on the host for the mesh step to take
+    its rows of (``train/step.py::shard_batch``), and only rank 0 writes
+    checkpoints.
     """
-    if mesh is not None:
-        raise NotImplementedError("fit on a mesh comes with the parallel/ slice of the port")
     writer = writer or MetricsWriter()
-    device = state.device
+    # under a mesh the step places its own rows; one process writes checkpoints
+    device = state.device if mesh is None else None
+    if mesh is not None and not mesh.is_primary:
+        checkpoint_manager = None
 
     def produce(entry):
         _, brng, items = entry
         if make_batch is not None:
-            return {k: torch.from_numpy(np.asarray(v)).to(device)
-                    for k, v in make_batch(items, brng).items()}
+            arrays = {k: torch.from_numpy(np.asarray(v)) for k, v in make_batch(items, brng).items()}
+            return arrays if device is None else {k: v.to(device) for k, v in arrays.items()}
         batch = collate_fixed_length(items, chunk_size=chunk_size, use_random_chunks=True,
                                      rng=brng)
         return batch_to_device(batch, device)
@@ -151,7 +156,8 @@ def fit(
         for b, batch in enumerate(prefetch(stream, depth=2, transform=produce),
                                   start=first_start):
             n_batches += 1
-            state, logdict = train_step(state, batch)
+            with trace_span("train.step"):
+                state, logdict = train_step(state, batch)
             step += 1
             writer.write(step, logdict)
             if eval_fn is not None and step % eval_every == 0:

@@ -24,7 +24,17 @@ step threads ``batch_stats`` through ``mutable``. The default call is
 ``ValueError``, as in JAX: a chunked step would change the batch
 statistics.
 
-The mesh (data-parallel) step comes with the ``parallel/`` slice.
+With a ``mesh`` (``parallel/mesh.py``, one process per card) the step takes
+the GLOBAL batch, as the JAX step takes the global sharded batch, and gives
+the single-device step's loss and update: each rank embeds its own rows
+(:func:`shard_batch`), the loss runs over the gathered global batch
+(``parallel/collectives.py::global_batch_loss``, the gradient reaching each
+rank's own rows), and the parameter gradients are summed over the ranks
+before the optimizer, which every rank runs on its replica. ``grad_accum >
+1`` chunks each rank's rows, gathers the chunked embeddings and slices each
+rank's rows of dL/dz back. A batch whose size does not divide the world
+size, and a BatchNorm step (whose statistics JAX's mesh step takes over the
+whole global batch), run whole on every rank with no reduction.
 """
 
 from __future__ import annotations
@@ -34,6 +44,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from wealy_tpu_torch.parallel.collectives import global_batch_loss
+from wealy_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_sum,
+    data_sharding,
+)
 from wealy_tpu_torch.train.state import TrainState
 
 
@@ -62,41 +79,54 @@ def loss_and_grads(
     loss_fn: Callable,
     model_call: Callable = default_model_call,
     grad_accum: int = 1,
+    mesh: Optional[Mesh] = None,
 ):
     """(loss, logdict, grads): the step's loss on the batch and the f32
     gradient of every trainable parameter (name -> tensor), without
-    updating anything."""
+    updating anything. With a ``mesh``, ``batch`` is this rank's shard of
+    the global batch: the loss is the global batch's and the gradients are
+    summed over the ranks."""
     batch = upcast_batch(batch)
     names = [n for n, _ in state.trainable]
     params = [p for _, p in state.trainable]
     extra = {"global_step": state.step}
+    sharded = mesh is not None and mesh.distributed
     labels, ids = batch["labels"], batch["ids"]
 
     def f32(gs):
         return [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                 for g, p in zip(gs, params)]
 
+    def reduced(grads: dict) -> dict:
+        return all_reduce_sum(mesh, grads) if sharded else grads
+
     if grad_accum <= 1:
+        wrapped = global_batch_loss(loss_fn, mesh) if sharded else loss_fn
         with torch.enable_grad():
             z = model_call(state.model, batch)
-            loss, logdict = loss_fn(labels, ids, z, extra)
+            loss, logdict = wrapped(labels, ids, z, extra)
             grads = f32(torch.autograd.grad(loss, params, allow_unused=True))
-        return loss.detach(), logdict, dict(zip(names, grads))
+        return loss.detach(), logdict, reduced(dict(zip(names, grads)))
 
     n = int(grad_accum)
     B = labels.shape[0]
     if B % n:
-        raise ValueError(f"batch size {B} not divisible by grad_accum {n}")
+        raise ValueError(f"batch size {B} not divisible by grad_accum {n}"
+                         + (" (this rank's rows of the global batch)" if sharded else ""))
     m = B // n
     chunks = [{k: v[i * m : (i + 1) * m] for k, v in batch.items()} for i in range(n)]
     # (1) activation-free embedding pass
     with torch.no_grad():
         z = torch.cat([model_call(state.model, c) for c in chunks])
-    # (2) loss and dL/dz on the full embedding matrix
+    # (2) loss and dL/dz on the full embedding matrix (every rank's rows)
+    if sharded:
+        z, labels, ids = (all_gather_rows(mesh, t) for t in (z, labels, ids))
     with torch.enable_grad():
         z = z.detach().requires_grad_(True)
         loss, logdict = loss_fn(labels, ids, z, extra)
         (dz,) = torch.autograd.grad(loss, z)
+    if sharded:
+        dz = dz[mesh.rank * B : (mesh.rank + 1) * B]
     # (3) re-run each chunk with autograd against its slice of dz
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     for i, c in enumerate(chunks):
@@ -107,7 +137,29 @@ def loss_and_grads(
         for a, g in zip(acc, gs):
             if g is not None:
                 a.add_(g.float())
-    return loss.detach(), logdict, dict(zip(names, acc))
+    return loss.detach(), logdict, reduced(dict(zip(names, acc)))
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of every leaf of a global batch dict, on the mesh's
+    device (``data_sharding``: a leaf whose batch axis does not divide the
+    world size, or a scalar, is placed whole, as the JAX ``shard_batch``
+    places it unsharded)."""
+
+    def put(x):
+        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else torch.as_tensor(x)
+        if x.ndim == 0:
+            return x.to(mesh.device)
+        return data_sharding(mesh, x).to(mesh.device)
+
+    return {k: put(v) for k, v in batch.items()}
+
+
+def _split_evenly(batch: dict, mesh: Mesh) -> bool:
+    """Whether the batch is split over a process group: every leaf with a
+    batch axis divides the world size."""
+    return mesh.distributed and all(
+        np.ndim(v) == 0 or np.shape(v)[0] % mesh.world_size == 0 for v in batch.values())
 
 
 def make_train_step(
@@ -120,20 +172,25 @@ def make_train_step(
 ):
     """``step(state, batch) -> (state, logdict)`` (the state is updated in
     place and returned). ``model`` is unused beyond the signature of the
-    JAX function: the step trains ``state.model``."""
+    JAX function: the step trains ``state.model``. With ``mesh``, ``batch``
+    is the global batch (host or device tensors) and every rank runs the
+    step (see the module doc)."""
     del model
     if grad_accum > 1 and with_batch_stats:
         raise ValueError("grad_accum is incompatible with batch_stats (BatchNorm) models")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh (data-parallel) train step comes with the parallel/ slice of the port"
-        )
     call = model_call or (batch_stats_model_call if with_batch_stats else default_model_call)
 
     def step(state: TrainState, batch: dict):
         if with_batch_stats:
             state.model.train()  # batch statistics in, running statistics updated
-        loss, logdict, grads = loss_and_grads(state, batch, loss_fn, call, grad_accum)
+        on_mesh = None
+        if mesh is not None:
+            if _split_evenly(batch, mesh) and not with_batch_stats:
+                batch, on_mesh = shard_batch(batch, mesh), mesh
+            else:  # the whole batch on every rank: the same gradients everywhere
+                batch = {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
+        loss, logdict, grads = loss_and_grads(state, batch, loss_fn, call, grad_accum,
+                                              mesh=on_mesh)
         state.apply_gradients(grads)
         logdict: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
                                             for k, v in logdict.items()}
@@ -143,16 +200,18 @@ def make_train_step(
     return step
 
 
-def make_eval_embed_step(model, mesh=None, model_call=None):
-    """``embed(emb, mask) -> z`` without autograd (evaluation)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh eval step comes with the parallel/ slice of the port"
-        )
+def make_eval_embed_step(model, mesh: Optional[Mesh] = None, model_call=None):
+    """``embed(emb, mask) -> z`` without autograd (evaluation). With a
+    ``mesh``, each rank embeds its rows of the batch and the ranks' rows are
+    gathered, so every rank returns the whole batch's z (a batch that does
+    not divide the world size is embedded whole on every rank)."""
     call = model_call or (lambda m, emb, mask: m(emb, mask))
 
     def embed(emb, mask):
         with torch.no_grad():
-            return call(model, emb, mask)
+            if mesh is None or not _split_evenly({"emb": emb, "mask": mask}, mesh):
+                return call(model, emb, mask)
+            local = shard_batch({"emb": emb, "mask": mask}, mesh)
+            return all_gather_rows(mesh, call(model, local["emb"], local["mask"]))
 
     return embed
