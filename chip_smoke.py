@@ -54,7 +54,17 @@ dense layers, no K3) over phase 21's split at large-v3-turbo beside the
 bf16 route, holds it against the f32 encoder with the JAX test's bounds
 and at whisper-tiny card against CPU, traces an extract with ``--profile``
 (the device's busy share), runs ``doctor`` and holds the mesh train step
-of a one-rank NCCL group against the plain step. Every kernel is
+of a one-rank NCCL group against the plain step. Phase 25 runs the
+parallel paths at two ranks on the one card (two gloo processes on
+``cuda:0``, ``--parallel-rank``; NCCL refuses two ranks on one device, and
+gloo's point-to-point operations take no CUDA tensor, so every gloo
+operation is staged through the host; the phase first probes which ones
+gloo takes): ``extract --batched --tp 2 --kinds hs_last_seq`` at large-v3-turbo
+over phase 21's first 16 versions, the TP decode, encoder and sequence-
+parallel encoder, two TP fine-tune steps (K1, K2, K3, K5a, K5b at the shard
+shapes), the GPipe encoder, ring attention, a sharded chunk-set ranking and
+``query --shard`` (K4), each against the one-process route, and
+``graft_entry.entry()`` card against CPU. Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -609,17 +619,7 @@ def main() -> int:
                lib)
     del x, got, want
 
-    counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
-                "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
-                "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux,
-                "layer_norm": tln.fused_layer_norm}
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def counts():
-        return {name: fn.launches for name, fn in counters.items()}
+    reset_counts, counts = launch_counters()
 
     def tally(phase: str, launched: dict) -> None:
         """Each kernel's launches in one main-path run (counts set to 0
@@ -754,6 +754,9 @@ def main() -> int:
         tally("23 transcription", transcribe_launches)
         # 24. the int8 encoder over phase 21's split, --profile, doctor, NCCL
         tally("24 int8 extract", quant_int8_phase(tmp, dev, reset_counts, counts, smi))
+        # 25. TP, SP, PP, the ring, the sharded ranking and serving at two ranks
+        parallel_launches = parallel_phase(tmp, dev, smi)
+        tally("25 parallel (2 ranks)", parallel_launches)
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
@@ -761,6 +764,9 @@ def main() -> int:
     for name in EXTRACT_KERNELS:
         check(transcribe_launches[name] > 0,
               f"phase 23 launched {name} {transcribe_launches[name]} times")
+    for name in (*EXTRACT_KERNELS, "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "bpwr_redux"):
+        check(parallel_launches.get(name, 0) > 0,
+              f"phase 25 launched {name} {parallel_launches.get(name, 0)} times")
     for k in kernels.values():
         check(k["launches"] > 0, f"{k['name']} was launched on no main path {k['launches_by_phase']}")
 
@@ -774,6 +780,29 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def launch_counters():
+    """(reset, read) of every kernel wrapper's launch count, by kernel name."""
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.ops import layer_norm as tln
+    from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
+    from wealy_tpu_torch.ops.flash_attention import flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq
+    from wealy_tpu_torch.ops.fused_mlp import fused_mlp
+
+    counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
+                "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
+                "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux,
+                "layer_norm": tln.fused_layer_norm}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    return reset_counts, counts
 
 
 def write_project(root: str, dev, n_cliques: int = 32, per_clique: int = 4, seed: int = 0,
@@ -2928,6 +2957,501 @@ def quant_int8_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
         f"launches of the int8 command {launched}; phase {time.perf_counter() - t_phase:.1f} s "
         f"| {smi}")
     return launched
+# phase 25: the parallel paths at two ranks on the one card (gloo, host-staged:
+# NCCL refuses two ranks on one device)
+P25_RANKS = 2
+P25_VERSIONS = 16  # the first versions of phase 21's split that `extract --tp 2` runs
+P25_BATCH = 8  # the decode, encoder and fine-tune batch (30 s mel clips)
+P25_RING = (2, 1500, 20, 64)  # ring attention's f32 q/k/v: a turbo layer's shape
+P25_RANKING = (1024, 8, 64)  # the sharded ranking's chunk sets: songs, chunks, width
+P25_SERVE = (4096, 8, 512)  # the `query --shard` index: songs, chunks, zdim
+P25_DEADLINE_S = 900
+# the ranks' device and Whisper size (a rehearsal on the CPU sets "cpu" and "dev")
+P25_DEVICE, P25_SIZE = "cuda", "large-v3-turbo"
+# 0. which operations gloo takes on the card's tensors directly, each in a
+# pair of processes of its own (an operation it refuses can abort its process)
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "send_recv",
+            "batch_isend_irecv")
+GLOO_PROBE = r"""
+import datetime, sys, torch, torch.distributed as dist
+r, port, op, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + port, world_size=2, rank=r,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.full((4,), float(r + 1), device=device)
+if op == "all_reduce":
+    dist.all_reduce(x)
+elif op == "broadcast":
+    dist.broadcast(x, src=0)
+elif op == "all_gather":
+    dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+elif op == "reduce_scatter":
+    dist.reduce_scatter_tensor(torch.empty(2, device=device), x)
+elif op == "send_recv":
+    dist.send(x, 1) if r == 0 else dist.recv(x, 0)
+else:
+    for q in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - r),
+                                     dist.P2POp(dist.irecv, torch.empty_like(x), 1 - r)]):
+        q.wait()
+torch.cuda.synchronize() if device == "cuda" else None
+print("ok", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def parallel_inputs(tmp: str) -> str:
+    """Phase 25's inputs in ``<tmp>/p25``: the commands' configs and
+    arguments, the batches and arrays every rank and the one-process
+    references read, all from seeds on the host. Returns the directory."""
+    from wealy_tpu_torch.audio.mel import log_mel_spectrogram
+    from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+
+    work = os.path.join(tmp, "p25")
+    os.makedirs(work)
+    lc, data = os.path.join(tmp, "lc"), os.path.join(tmp, "data")
+    tp_conf = write_config(os.path.join(work, "turbo_tp.json"), lc, os.path.join(work, "hs_tp"),
+                           os.path.join(work, "cache_tp"), chunk_size=224, overlap=0.5,
+                           whisper_size=P25_SIZE, data_root=data)
+    gen = torch.Generator().manual_seed(25)
+    batch = mel_batch(P25_BATCH, WHISPER_CONFIGS[P25_SIZE].n_mels,
+                      torch.Generator().manual_seed(14), "cpu")
+    audio = 0.1 * torch.randn(4, 480000, generator=gen)
+    rng = np.random.default_rng(25)
+    n, smax, c = P25_RANKING
+    labels = np.arange(n) // 4
+    sets = (rng.normal(size=(n // 4 + 1, 1, c))[labels] + rng.normal(size=(n, smax, c))).astype(
+        np.float32)
+    mask = np.ones((n, smax), bool)
+    mask[:, smax // 2:] = rng.random((n, smax - smax // 2)) < 0.7
+    n_s, smax_s, z_s = P25_SERVE
+    serve_root = os.path.join(work, "serve")
+    os.makedirs(serve_root)
+    index = os.path.join(serve_root, "idx.npz")
+    write_index(index, rng.normal(size=(n_s, smax_s, z_s)).astype(np.float16),
+                rng.random((n_s, smax_s)) < 0.8, np.arange(n_s) // 4, emb_dim=1280,
+                chunk_size=1000, overlap=0.9)
+    queries = []
+    for i in range(4):
+        q = os.path.join(serve_root, f"q{i}.npz")
+        np.savez(q, embeddings=rng.normal(size=(1500, 1280)).astype(np.float32))
+        queries.append(q)
+    torch.save({
+        "extract": ["extract", "--config", tp_conf, "--split", "test", "--batched", "--tp",
+                    str(P25_RANKS), "--kinds", "hs_last_seq", "--batch-size", "16", "--limit",
+                    str(P25_VERSIONS), "--device", P25_DEVICE],
+        "query": ["query", "--config", serving_config(serve_root), "--index", index,
+                  "--query-embeddings", *queries, "--k", "10", "--block-size", "512",
+                  "--device", P25_DEVICE],
+        # f32 at T 200 (below K2's 256-step gate: K2 takes bf16 only), bf16 at T 1500
+        "batch": batch, "mel_tiny": log_mel_spectrogram(audio, 80),
+        "ring": tuple(torch.randn(*P25_RING, generator=gen) for _ in range(3)),
+        "ranking": (sets, mask, labels),
+    }, os.path.join(work, "inputs.pt"))
+    return work
+
+
+def parallel_rank(rank: int, ports: list, work: str) -> int:
+    """One of phase 25's two ranks (``python3 chip_smoke.py --parallel-rank
+    RANK PORTS DIR``): a. ``extract --batched --tp 2`` through the CLI, the
+    TP and SP encoder and the TP decode on phase 25's batch, and two TP
+    fine-tune steps; b. the GPipe encoder, ring attention, the sharded
+    ranking (K4) and ``query --shard`` (K4). Writes ``DIR/rank<r>.pt``;
+    exits nonzero on a failed check."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
+    from wealy_tpu_torch.models.whisper import model as wmodel
+    from wealy_tpu_torch.models.whisper.generate import (
+        decode_cross_kv,
+        default_prompt,
+        init_kv_caches,
+    )
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+    from wealy_tpu_torch.parallel.multihost import initialize_multihost
+    from wealy_tpu_torch.parallel.pp import make_pp_mesh, pp_encode_fn
+    from wealy_tpu_torch.parallel.ring import make_cp_mesh, ring_attention
+    from wealy_tpu_torch.parallel.similarity import streaming_relevant_ranks
+    from wealy_tpu_torch.parallel.tp import make_tp_mesh, tp_decode_fn, tp_encode_fn, tp_module
+    from wealy_tpu_torch.train.finetune import EncoderHead, encoder_head_call
+    from wealy_tpu_torch.train.state import TrainState, make_optimizer
+    from wealy_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(P25_RANKS), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(P25_RANKS), MASTER_ADDR="127.0.0.1")
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    reset_counts, counts = launch_counters()
+    shapes = {"flash_mha": set(), "fused_mlp": set()}
+    real_attn, real_mlp = wmodel.flash_mha, wmodel.fused_mlp
+
+    def attn(q, k, v, scale):
+        shapes["flash_mha"].add(tuple(q.shape))
+        return real_attn(q, k, v, scale)
+
+    def mlp(x, w1, b1, w2, b2):
+        shapes["fused_mlp"].add((tuple(x.shape), tuple(w1.shape), tuple(w2.shape)))
+        return real_mlp(x, w1, b1, w2, b2)
+
+    wmodel.flash_mha, wmodel.fused_mlp = attn, mlp
+    res, times = {}, {}
+    reset_counts()
+
+    # a. the user's command: two ranks split one large-v3-turbo
+    os.environ["MASTER_PORT"] = str(ports[0])
+    t = time.perf_counter()
+    res["extract"] = run_cli_lines(inp["extract"])[0]
+    times["extract"] = time.perf_counter() - t
+
+    os.environ["MASTER_PORT"] = str(ports[1])
+    initialize_multihost(timeout_s=600)
+    mesh = make_tp_mesh(P25_RANKS, device=P25_DEVICE)
+    full, cfg = load_whisper_model(P25_SIZE, seed=0, device="cpu")
+    mel = inp["batch"]["emb"]
+    for name, sp in (("tp_states", False), ("sp_states", True)):
+        t = time.perf_counter()
+        with torch.inference_mode():
+            res[name] = tp_encode_fn(full, mesh, sequence_parallel=sp)(mel).cpu()
+        times[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    decode = tp_decode_fn(full, mesh, cfg, default_prompt(cfg), max_len=224)
+    out = decode(mel)
+    res["decode"] = {k: out[k].cpu() for k in ("tokens", "hidden", "lengths")}
+    times["decode"] = time.perf_counter() - t
+    # the TP decoder teacher-forced on the one-process route's tokens: its
+    # log-probabilities at every position (rank 0 writes them; every rank's are equal)
+    tp_model = decode.module
+    with torch.inference_mode():
+        states = tp_model.encode(mel.to(mesh.device))
+        caches = init_kv_caches(cfg, P25_BATCH, 224, dtype=tp_model.dtype, device=mesh.device,
+                                n_head=tp_model.decoder.blocks[0].attn.n_head)
+        _, logits, _ = tp_model.decode(inp["one_tokens"].to(mesh.device), None,
+                                       kv_caches=caches, cache_index=0,
+                                       xa_kv=decode_cross_kv(tp_model, states))
+        if rank == 0:
+            torch.save(torch.log_softmax(logits.float(), -1).cpu(),
+                       os.path.join(work, "tp_logp.pt"))
+    del decode, tp_model, states, caches, logits
+    head = seeded_init_(ProjectionHead(cfg.n_audio_state, zdim=512), seed=1).to(mesh.device)
+    state = TrainState(EncoderHead(tp_module(full.encoder, mesh), head),
+                       make_optimizer(lr=1e-5, warmup_steps=1, max_steps=1000))
+    del full
+    step = make_train_step(None, clews_loss, mesh=mesh, model_call=encoder_head_call)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    losses = []
+    for _ in range(2):
+        state, ld = step(state, inp["batch"])
+        losses.append(float(ld["loss"]))
+    times["finetune"] = time.perf_counter() - t
+    res["finetune"] = {"losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, step, head
+    torch.cuda.empty_cache()
+
+    # b. GPipe over 2 stages (whisper-tiny, f32), ring attention (f32), the
+    # sharded chunk-set ranking
+    pp_mesh = make_pp_mesh(P25_RANKS, device=P25_DEVICE)
+    t = time.perf_counter()
+    with torch.no_grad():
+        for name, dtype, frames in (("pp", torch.float32, 400), ("pp16", torch.bfloat16, 3000)):
+            tiny, _ = load_whisper_model("tiny", seed=0, device=P25_DEVICE, dtype=dtype)
+            res[name] = pp_encode_fn(tiny.encoder, pp_mesh, n_micro=2)(
+                inp["mel_tiny"][..., :frames]).float().cpu()
+        times["pp"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["ring"] = ring_attention(*inp["ring"], P25_RING[3] ** -0.5,
+                                     make_cp_mesh(P25_RANKS, device=P25_DEVICE)).cpu()
+        times["ring"] = time.perf_counter() - t
+    sets, mask, labels = inp["ranking"]
+    t = time.perf_counter()
+    res["ranks"] = streaming_relevant_ranks(sets, sets, labels, labels, mode="cos",
+                                            redux="bpwr", query_mask=mask, corpus_mask=mask,
+                                            block_size=256, query_block=256,
+                                            mesh=make_mesh(device=P25_DEVICE))
+    times["ranking"] = time.perf_counter() - t
+    dist.barrier()
+    dist.destroy_process_group()
+
+    # `query --shard`: each rank holds half the index on the card
+    os.environ["MASTER_PORT"] = str(ports[2])
+    t = time.perf_counter()
+    res["query"] = run_cli_lines(inp["query"] + ["--shard"])[0]
+    times["query"] = time.perf_counter() - t
+    res["launches"] = counts()
+    res["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    res["times"] = times
+    res["failures"] = list(FAILURES)
+    torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+    return 1 if FAILURES else 0
+
+
+def gloo_probe(deadline_s: float = 120.0) -> dict:
+    """Operation -> "takes" when both processes of its pair ran it on
+    ``P25_DEVICE`` tensors, else "refuses" with their exit codes."""
+    pairs = []
+    for op in GLOO_OPS:
+        port = str(free_port())
+        pairs.append((op, [subprocess.Popen([sys.executable, "-c", GLOO_PROBE, str(r), port, op,
+                                             P25_DEVICE], stdout=subprocess.PIPE,
+                                            stderr=subprocess.DEVNULL, text=True)
+                           for r in range(2)]))
+    t = time.perf_counter()
+    procs = [p for _, pair in pairs for p in pair]
+    while time.perf_counter() - t < deadline_s and any(p.poll() is None for p in procs):
+        time.sleep(0.2)
+    out = {}
+    for op, pair in pairs:
+        for p in pair:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        said = [p.stdout.read().strip() for p in pair]
+        rcs = [p.returncode for p in pair]
+        out[op] = "takes" if said == ["ok", "ok"] else f"refuses (exit {rcs})"
+    return out
+
+
+def run_ranks(work: str, ports: str) -> float:
+    """Phase 25's ranks as processes, under one deadline (a rank past it is
+    killed and fails the phase); their output in ``work/rank<r>.log``.
+    Returns the wall seconds."""
+    t = time.perf_counter()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(P25_RANKS)]
+    # the host's cores shared by the ranks: oversubscribed OpenMP teams spin
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // P25_RANKS)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), ports, work], cwd=REPO, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(P25_RANKS)]
+    while time.perf_counter() - t < P25_DEADLINE_S and any(p.poll() is None for p in procs):
+        time.sleep(0.5)
+    for p, f in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        f.close()
+    for r, p in enumerate(procs):
+        tail = open(os.path.join(work, f"rank{r}.log")).read()[-4000:]
+        check(p.returncode == 0, f"phase 25 rank {r} exit {p.returncode}:\n{tail}")
+    return time.perf_counter() - t
+
+
+def parallel_phase(tmp: str, dev, smi: str) -> dict:
+    """25. Tensor, sequence and pipeline parallelism, ring attention and the
+    sharded ranking and serving at two ranks on the one card: after a probe
+    of which operations gloo takes on the card's tensors (:func:`gloo_probe`),
+    two processes over gloo (NCCL refuses two ranks on one device), every
+    operation staged through the host, run :func:`parallel_rank`, each result held
+    against the one-process route, computed here first on the same seeds:
+    the TP decode's tokens up to the first step whose one-process top-2
+    margin is below 1e-2 or below twice the two routes' teacher-forced
+    log-probability gap there (a bf16 route rounded another way can flip
+    only such a choice), and the hidden rows of that prefix; the
+    teacher-forced log-probabilities (row cosine >= 0.999); the TP extract's
+    stored prompt rows against phase 21's store; the TP and SP encoder
+    states (row cosine >= 0.999); the TP fine-tune losses (bf16 tolerance
+    0.05); the GPipe encoder (f32 1e-4, bf16 row cosine >= 0.999) and the
+    ring (f32 1e-4); the ranks and MAP; ``query --shard``'s rankings; and
+    c. ``graft_entry.entry()``'s forward on the card against its CPU run
+    (row cosine >= 0.9999). Returns the ranks' summed launches and c's."""
+    from wealy_tpu_torch.cli.extract import load_whisper_model
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore
+    from wealy_tpu_torch.losses import clews_loss
+    from wealy_tpu_torch.models.heads import ProjectionHead, seeded_init_
+    from wealy_tpu_torch.models.whisper import generate as wgen
+    from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
+    from wealy_tpu_torch.train.finetune import EncoderHead, encoder_head_call
+    from wealy_tpu_torch.train.state import create_train_state, make_optimizer
+    from wealy_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gloo = gloo_probe()
+    work = parallel_inputs(tmp)
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+
+    # the one-process route on this card, the same seeds
+    t_ref = time.perf_counter()
+    model, cfg = load_whisper_model(P25_SIZE, seed=0, device=dev)
+    mel = inp["batch"]["emb"].to(dev)
+    prompt = wgen.default_prompt(cfg)
+    with torch.inference_mode():
+        states = model.encode(mel)
+        one = wgen.greedy_decode(model, states, cfg, prompt, max_len=224)
+        caches = wgen.init_kv_caches(cfg, P25_BATCH, 224, dtype=model.dtype, device=dev)
+        _, logits, _ = model.decode(one["tokens"], None, kv_caches=caches, cache_index=0,
+                                    xa_kv=wgen.decode_cross_kv(model, states))
+        logp = torch.log_softmax(logits.float(), -1).cpu()
+    del logits, caches
+    states = states.float().cpu()
+    tokens, hidden, lengths = (one[k].cpu() for k in ("tokens", "hidden", "lengths"))
+    inp["one_tokens"] = tokens
+    torch.save(inp, os.path.join(work, "inputs.pt"))
+    head = seeded_init_(ProjectionHead(cfg.n_audio_state, zdim=512), seed=1).to(dev)
+    state = create_train_state(EncoderHead(model.encoder, head),
+                               make_optimizer(lr=1e-5, warmup_steps=1, max_steps=1000),
+                               init=False)
+    del model
+    step = make_train_step(None, clews_loss, model_call=encoder_head_call)
+    batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+    plain = []
+    for _ in range(2):
+        state, ld = step(state, batch)
+        plain.append(float(ld["loss"]))
+    del state, step, batch, head
+    tiny, _ = load_whisper_model("tiny", seed=0, device=dev, dtype=torch.float32)
+    tiny16, _ = load_whisper_model("tiny", seed=0, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        pp_want = tiny.encoder(inp["mel_tiny"][..., :400].to(dev)).cpu()
+        pp16_want = tiny16.encoder(inp["mel_tiny"].to(dev)).float().cpu()
+        q, k, v = (x.to(dev) for x in inp["ring"])
+        p_ = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * P25_RING[3] ** -0.5, -1)
+        ring_want = torch.einsum("bhqk,bkhd->bqhd", p_, v).cpu()
+    del tiny, tiny16, q, k, v, p_
+    sets, mask, labels = inp["ranking"]
+    want_ranks, n_rel = streaming_relevant_ranks(sets, sets, labels, labels, mode="cos",
+                                                 redux="bpwr", query_mask=mask, corpus_mask=mask,
+                                                 block_size=256, query_block=256, device=dev)
+    single, _ = run_cli_lines(inp["query"])
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
+
+    ranks_s = run_ranks(work, ",".join(str(free_port()) for _ in range(3)))
+    if not all(os.path.exists(os.path.join(work, f"rank{r}.pt")) for r in range(P25_RANKS)):
+        return {}
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(P25_RANKS)]
+    launched = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+
+    # a. the TP decode: tokens up to the first choice a rounding could flip
+    tp_logp = torch.load(os.path.join(work, "tp_logp.pt"))
+    top2 = logp.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]  # margin[b, j]: the choice of token j + 1
+    gap = (tp_logp - logp).abs().amax(-1)  # the two routes' log-probability gap at j
+    lp_cos = min(min_row_cos(tp_logp[b, : int(n) - 1], logp[b, : int(n) - 1])
+                 for b, n in enumerate(lengths))
+    held = strict = True
+    compared, compared_strict, hcos = 0, 0, 1.0
+    for r in res:
+        got = r["decode"]
+        for b in range(P25_BATCH):
+            L = min(int(lengths[b]), 223)
+            js = range(len(prompt) - 1, L)
+            upto = min([j + 1 for j in js if margin[b, j] < max(1e-2, 2 * float(gap[b, j]))],
+                       default=L)
+            upto_strict = min([j + 1 for j in js if margin[b, j] < 1e-2], default=L)
+            held &= torch.equal(got["tokens"][b, :upto], tokens[b, :upto])
+            strict &= torch.equal(got["tokens"][b, :upto_strict], tokens[b, :upto_strict])
+            compared += upto - len(prompt)
+            compared_strict += upto_strict - len(prompt)
+            hcos = min(hcos, min_row_cos(got["hidden"][b, :upto].float(),
+                                         hidden[b, :upto].float()))
+    flat = states.reshape(-1, states.shape[-1])
+    enc = {name: (min(min_row_cos(r[name].float().reshape(flat.shape), flat) for r in res),
+                  max(rel_err(r[name].float(), states) for r in res))
+           for name in ("tp_states", "sp_states")}
+    check(held, "phase 25a TP decode tokens differ from the one-process route before a choice "
+          "whose margin is below 1e-2 or twice the routes' teacher-forced gap")
+    check(hcos >= 0.999 and lp_cos >= 0.999, f"phase 25a TP decode hidden rows cos {hcos:.6f} "
+          f"on the equal prefix, teacher-forced log-probabilities cos {lp_cos:.6f}")
+    check(all(c >= 0.999 for c, _ in enc.values()), f"phase 25 TP / SP encoder states {enc}")
+    ft = [r["finetune"]["losses"] for r in res]
+    check(all(np.allclose(f, plain, rtol=0.05, atol=0.05) for f in ft),
+          f"phase 25a TP fine-tune losses {ft} vs plain {plain}")
+
+    # the extract command's stored rows against phase 21's one-process store
+    tp_store = EmbeddingStore(os.path.join(work, "hs_tp"), "lyric-covers")
+    one_store = EmbeddingStore(os.path.join(tmp, "hs"), "lyric-covers")
+    out = res[0]["extract"][-1] if res[0]["extract"] else {}
+    check(out.get("done") == P25_VERSIONS and out.get("incomplete") == []
+          and res[1]["extract"] == [], f"phase 25a extract --tp {out} (rank 1 printed "
+          f"{res[1]['extract']})")
+    vids = sorted(os.listdir(os.path.join(work, "hs_tp")))
+    head_cos, share = 1.0, []
+    for vid in vids:
+        a, b = (torch.from_numpy(st.load(vid, "hs_last_seq.npz")["embeddings"].astype(
+            np.float32)) for st in (tp_store, one_store))
+        head_cos = min(head_cos, min_row_cos(a[: len(prompt)], b[: len(prompt)]))
+        n = min(len(a), len(b))
+        share.append(float((F.cosine_similarity(a[:n], b[:n], dim=-1) >= 0.999).float().mean()))
+    check(len(vids) == P25_VERSIONS and head_cos >= 0.999,
+          f"phase 25a extract --tp: {len(vids)} versions stored, prompt rows cos {head_cos:.6f}")
+
+    # b. PP and the ring against their plain versions, the ranking, `query --shard`
+    pp_err = max(float((r["pp"] - pp_want).abs().max()) for r in res)
+    pp16_cos = min(min_row_cos(r["pp16"].reshape(-1, pp16_want.shape[-1]),
+                               pp16_want.reshape(-1, pp16_want.shape[-1])) for r in res)
+    ring_err = max(float((r["ring"] - ring_want).abs().max()) for r in res)
+    check(pp_err < 1e-4 and ring_err < 1e-4, f"phase 25b PP max err {pp_err:.3g}, ring "
+          f"{ring_err:.3g} (f32 gate 1e-4)")
+    check(pp16_cos >= 0.999, f"phase 25b bf16 PP (K2, K3) row cos {pp16_cos:.6f}")
+    ranks_equal = all(np.array_equal(r["ranks"][0], want_ranks) for r in res)
+    got_map, want_map = map_from_ranks(res[0]["ranks"][0], n_rel), map_from_ranks(want_ranks,
+                                                                                  n_rel)
+    check(ranks_equal and got_map == want_map, f"phase 25b sharded ranks equal {ranks_equal}, "
+          f"MAP {got_map} vs {want_map}")
+    sharded = res[0]["query"]
+    same_q, worst_q = same_rankings(sharded, single, 1e-4)
+    same_q = same_q and len(sharded) == len(single) == 4 and res[1]["query"] == []
+    check(same_q, f"phase 25b query --shard rankings differ from the one-card query (max score "
+          f"difference {worst_q:.3g})")
+
+    # c. the graft entry: its whisper-tiny forward on the card against its CPU run
+    from wealy_tpu_torch.graft_entry import entry
+
+    reset_counts, counts = launch_counters()
+    forward, (audio,) = entry(P25_DEVICE)
+    reset_counts()
+    t = time.perf_counter()
+    got = forward(audio).float().cpu()
+    entry_s = time.perf_counter() - t
+    for name, n in counts().items():
+        launched[name] += n
+    cpu_forward, _ = entry("cpu")
+    entry_cos = min_row_cos(got, cpu_forward(audio).float())
+    check(tuple(got.shape) == (2, 512) and entry_cos >= 0.9999,
+          f"phase 25c graft_entry.entry() card vs CPU {tuple(got.shape)} cos {entry_cos:.6f}")
+    del forward, cpu_forward
+
+    t0 = res[0]["times"]
+    chunks = out.get("throughput", {}).get("total_items", 0)
+    shp = res[0]["shapes"]
+    say(f"[25 parallel, 2 ranks on one card over gloo; host-staged (NCCL refuses two ranks on "
+        f"one device): times are the host-staged transport's, not TP's across cards] 0. gloo on "
+        f"{P25_DEVICE} tensors: {gloo}; the port stages every gloo operation on a card's tensors "
+        f"through the host | a. extract "
+        f"--batched --tp 2 hs_last_seq {P25_SIZE}, {out.get('done')} versions ({chunks} "
+        f"chunks, B=16, max_len 224) {t0['extract']:.2f} s wall = "
+        f"{chunks / max(t0['extract'], 1e-9):.3f} chunks/s incl. the model build; stored rows: "
+        f"prompt rows cos {head_cos:.6f} against phase 21's one-process store, share of rows "
+        f">= 0.999 min {min(share):.3f} median {float(np.median(share)):.3f} | TP decode "
+        f"B={P25_BATCH} {t0['decode']:.2f} s: tokens held up to the first margin below 1e-2 or "
+        f"2x the teacher-forced gap ({compared} positions over 2 ranks; by the 1e-2 rule alone "
+        f"{'held' if strict else 'not held'} over {compared_strict}), hidden cos {hcos:.6f}, "
+        f"teacher-forced log-probabilities cos {lp_cos:.6f}, gap median "
+        f"{float(gap.median()):.3g} max {float(gap.max()):.3g} | TP encoder states cos "
+        f"{enc['tp_states'][0]:.6f} rel err {enc['tp_states'][1]:.3g} ({t0['tp_states']:.2f} "
+        f"s), SP cos {enc['sp_states'][0]:.6f} rel err {enc['sp_states'][1]:.3g} "
+        f"({t0['sp_states']:.2f} s) | TP fine-tune EncoderHead B={P25_BATCH} 2 steps "
+        f"{t0['finetune']:.2f} s, losses {ft} vs plain {plain}, peak "
+        f"{[round(r['finetune']['peak_gb'], 2) for r in res]} GB per rank | K2 shard shapes "
+        f"{shp['flash_mha']}, K3 (x, w1, w2) shard shapes {shp['fused_mlp']} | b. GPipe 2 "
+        f"stages whisper-tiny B=4, 2 microbatches: f32 at T 200 max err {pp_err:.3g}, bf16 at "
+        f"T 1500 (K2, K3) row cos {pp16_cos:.6f} ({t0['pp']:.2f} s); ring f32 {P25_RING} max "
+        f"err {ring_err:.3g} ({t0['ring']:.2f} s); sharded chunk-set ranking {P25_RANKING} "
+        f"bpwr ranks equal {ranks_equal}, MAP {got_map['MAP']:.4f} ({t0['ranking']:.2f} s); "
+        f"query --shard on a {P25_SERVE} index, 4 queries, rankings equal the one-card query "
+        f"{same_q} (max score difference {worst_q:.3g}; {t0['query']:.2f} s) | c. "
+        f"graft_entry.entry() whisper-tiny (2, 512) card vs CPU row cos {entry_cos:.6f} "
+        f"({entry_s:.2f} s with its first launches) | launches (both ranks and c) {launched} | "
+        f"references {ref_s:.1f} s, ranks {ranks_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launched
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), [int(p) for p in sys.argv[3].split(",")],
+                               sys.argv[4]))
     sys.exit(main())

@@ -15,7 +15,12 @@ sys.path.insert(0, str(REPO / "tests"))
 
 from wealy_tpu_torch.losses import get_loss  # noqa: E402
 from wealy_tpu_torch.parallel.collectives import global_batch_loss  # noqa: E402
-from wealy_tpu_torch.parallel.mesh import all_gather_rows, data_sharding, make_mesh  # noqa: E402
+from wealy_tpu_torch.parallel.mesh import (  # noqa: E402
+    all_gather_rows,
+    all_reduce,
+    data_sharding,
+    make_mesh,
+)
 from wealy_tpu_torch.parallel.multihost import (  # noqa: E402
     host_shard,
     initialize_multihost,
@@ -33,6 +38,10 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     mesh = make_mesh(device="cpu")
     res = {"report": report, "rank": mesh.rank, "world": mesh.world_size,
            "host_shard": host_shard(range(11)), "primary": is_primary_host()}
+    tp = make_mesh(("data", "model"), (1, world), device="cpu")
+    res["model_mesh"] = {"shape": tp.shape, "index": tp.index("model"),
+                         "next": tp.peer("model", tp.index("model") + 1),
+                         "sum": float(all_reduce(tp, torch.tensor([float(rank)]), "model"))}
 
     # global_batch_loss: the loss of the gathered batch, the gradient of this rank's rows
     labels, ids, z = cases.loss_inputs()

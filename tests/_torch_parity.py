@@ -168,3 +168,65 @@ def write_embedding_project(root, train: dict = None) -> str:
                   "checkpoint_every": 1000, **(train or {})},
     }))
     return str(cpath)
+
+
+def free_ports(n: int = 1) -> list:
+    """``n`` distinct free TCP ports on the loopback interface."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def rank_env() -> dict:
+    """The environment of a spawned rank: the repo on the path, no
+    inherited torchrun variables, one OpenMP thread."""
+    import os
+    from pathlib import Path
+
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parents[1])
+    env["PYTHONPATH"] = os.pathsep.join([repo, env.get("PYTHONPATH", "")])
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(key, None)
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def spawn_ranks(cases: str, world: int, workdir, n_ports: int = 1, deadline_s: float = 240.0):
+    """Run ``tests/<cases>.py::run`` in ``world`` gloo CPU processes
+    (tests/_torch_mesh_worker.py), all under one deadline (a hung rank
+    fails the test, it does not hang the suite); returns each rank's result
+    dict, in rank order. ``workdir`` holds the inputs the cases read and
+    their outputs; ``n_ports`` free ports are handed to the cases (the
+    first carries the process group)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    ports = ",".join(str(p) for p in free_ports(n_ports))
+    argv = [[sys.executable, str(tests / "_torch_mesh_worker.py"), cases, str(r), str(world),
+             ports, str(workdir)] for r in range(world)]
+    procs = [subprocess.Popen(a, cwd=workdir, env=rank_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in argv]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=deadline_s)
+            results.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail(f"{cases}: a rank did not finish within {deadline_s:.0f} s")
+    for r, (rc, out, err) in enumerate(results):
+        assert rc == 0, f"rank {r}:\n{out[-2000:]}\n{err[-4000:]}"
+    return [torch.load(Path(workdir) / f"{cases}_rank{r}.pt", weights_only=False)
+            for r in range(world)]

@@ -194,10 +194,21 @@ def test_pack_direct_sink_writes_the_jax_pack(project, short_chunks):
         np.testing.assert_array_equal(packs[0].load(v), packs[1].load(v))
 
 
-def test_a_mesh_waits_for_item_6(project):
-    (pc, pmd), _ = _both(project)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        TEB.extract_split_batched(pc, pmd, "train", shared_embed, mesh=object())
+def test_a_mesh_waits_for_item_6(project, short_chunks):
+    """Ported with item 6d: the job on a mesh (here the one-rank mesh of a
+    process without a group; two ranks in tests/test_torch_mesh_commands.py)
+    stores what the job without one stores."""
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+
+    stores = []
+    for name, mesh in (("mesh_none", None), ("mesh_one", make_mesh(device="cpu"))):
+        c, md = _both(project, hs_port=name)[0]
+        result = TEB.extract_split_batched(c, md, "train", shared_embed, batch_size=4, mesh=mesh)
+        assert sorted(result["done"]) == ["100", "101", "200", "201"]
+        stores.append(EmbeddingStore(c.path.hidden_states, "lyric-covers"))
+    for v in ("100", "101", "200", "201"):
+        np.testing.assert_array_equal(stores[0].load(v, "x_concat.npz")["embeddings"],
+                                      stores[1].load(v, "x_concat.npz")["embeddings"])
 
 
 # --- the dev Whisper in f32, one init on both sides --------------------------------------------
@@ -301,6 +312,38 @@ def _cli_conf(project, name):
     return str(path)
 
 
+@pytest.fixture(scope="module")
+def tp_ranks(project, checkpoint, tmp_path_factory):
+    """Two gloo ranks (tests/_torch_extract_tp_cases.py): the decoder factory
+    with tp=2 on one batch, then ``extract --batched --tp 2`` as torchrun
+    launches it, on the dev checkpoint with a confident decoder (final
+    LayerNorm scale x128: bf16 rounding moves no argmax)."""
+    from _torch_parity import spawn_ranks
+
+    work = tmp_path_factory.mktemp("extract_tp")
+    sd = torch.load(checkpoint, weights_only=True)
+    sd["decoder.ln.weight"] = sd["decoder.ln.weight"] * 128.0
+    ckpt = str(work / "confident.pt")
+    torch.save(sd, ckpt)
+    audio = (0.1 * np.random.default_rng(0).normal(size=(2, 480000))).astype(np.float32)
+    argv = ["extract", "--config", _cli_conf(project, "tp_mesh"), "--batched", "--tp", "2",
+            "--limit", "1", "--kinds", "hs_last_seq", "--hf-checkpoint", ckpt, "--overwrite",
+            "--device", "cpu"]
+    torch.save({"conf": _conf(project, "tp_factory"), "ckpt": ckpt,
+                "audio": torch.from_numpy(audio), "argv": argv}, work / "inputs.pt")
+    return ckpt, audio, spawn_ranks("_torch_extract_tp_cases", 2, work, n_ports=2)
+
+
+def _same_live_rows(a, b):
+    """bf16 decoder states of two routes: the same zero rows (past a
+    chunk's end), row cosine >= COS_MIN elsewhere."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert a.shape == b.shape
+    live = np.abs(b).sum(axis=-1) > 0
+    np.testing.assert_array_equal(np.abs(a).sum(axis=-1) > 0, live)
+    assert min_row_cosine(a[live], b[live]) >= COS_MIN
+
+
 def _json_line(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -326,9 +369,29 @@ def test_the_jax_refusals_exit_2(project, capsys, flags):
     (["--profile", "trace_dir"], 6), (["--batched", "--cross-kv-f8"], 5),
     (["--self-kv-f8"], 5), (["--kinds", "hs_clews"], 4),
 ])
-def test_what_is_not_ported_names_its_item(project, flags, item, capsys):
+def test_what_is_not_ported_names_its_item(project, flags, item, capsys, request):
     conf = _cli_conf(project, "unported")
     argv = ["extract", "--config", conf, *flags, "--device", "cpu"]
+    if "--tp" in flags:
+        # ported with item 6d: two ranks split one model and store what one
+        # process stores (rank 0 alone writes and prints)
+        ckpt, _, results = request.getfixturevalue("tp_ranks")
+        (rc0, out0), (rc1, out1) = (res["cli"] for res in results)
+        assert rc0 == rc1 == 0 and out1 == []
+        assert port_main(["extract", "--config", _cli_conf(project, "tp_one"), "--batched",
+                          "--limit", "1", "--kinds", "hs_last_seq", "--hf-checkpoint", ckpt,
+                          "--overwrite", "--device", "cpu"]) == 0
+        want = _json_line(capsys)
+        got = json.loads(out0[-1])
+        assert got["done"] == want["done"] == 1 and got["incomplete"] == []
+        a, b = (EmbeddingStore(project / name, "lyric-covers").load(
+            "100", "hs_last_seq.npz")["embeddings"] for name in ("tp_mesh", "tp_one"))
+        # 224 greedy steps in bf16: the two routes' rounding may fork the
+        # tokens at a near-tie late in the chunk (the f32 TP decode holds
+        # every token: tests/test_torch_tp.py); the states agree before it
+        assert a.shape[1] == b.shape[1] and min(len(a), len(b)) >= 32
+        _same_live_rows(a[:32], b[:32])
+        return
     if item == 4:
         # ported with the CLEWS/fusion slice (item 4): the trio is written, as
         # by the JAX CLI (held against it in tests/test_torch_fusion_cli.py)
@@ -369,15 +432,20 @@ def test_what_is_not_ported_names_its_item(project, flags, item, capsys):
         port_main(argv)
 
 
-def test_embed_factories_name_their_items(project):
+def test_embed_factories_name_their_items(project, request):
     # the int8 encoder came with item 6a: the factory builds and embeds
     config = Config.from_dict(_conf(project, "int8_factory"))
     embed = TEB.make_encoder_embed_fn(config, quant_int8=True, device="cpu")
     z = embed(np.zeros((2, 480000), np.float32))
     assert z.shape == (2, 64) and z.dtype == torch.bfloat16 and bool(torch.isfinite(z).all())
-    # the mesh and tensor-parallel decoders wait for item 6d
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6d"):
-        TEB.make_decoder_embed_fn(config, tp=2, device="cpu")
+    # the tensor-parallel decoder came with item 6d: two ranks decode as one
+    ckpt, audio, results = request.getfixturevalue("tp_ranks")
+    one = TEB.make_decoder_embed_fn(config, ckpt, max_len=8, device="cpu")
+    hidden, lengths = one(audio)
+    for res in results:
+        h, n = res["factory"]
+        np.testing.assert_array_equal(n.numpy(), lengths.numpy())
+        _same_live_rows(h.numpy(), hidden.float().numpy())
     # the float8 KV modes came with item 5: the factory builds and decodes
     config = Config.from_dict(_conf(project, "f8_factory"))
     fn = TEB.make_decoder_embed_fn(config, cross_kv_f8=True, self_kv_f8=True, max_len=6,

@@ -60,7 +60,9 @@ def test_every_module_imports_without_jax():
             "wealy_tpu_torch.utils.masks", "wealy_tpu_torch.cli.doctor",
             "wealy_tpu_torch.cli.__main__", "wealy_tpu_torch.parallel.mesh",
             "wealy_tpu_torch.parallel.collectives",
-            "wealy_tpu_torch.parallel.multihost"} <= set(mods)
+            "wealy_tpu_torch.parallel.multihost", "wealy_tpu_torch.parallel.tp",
+            "wealy_tpu_torch.parallel.pp", "wealy_tpu_torch.parallel.ring",
+            "wealy_tpu_torch.parallel.similarity", "wealy_tpu_torch.graft_entry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

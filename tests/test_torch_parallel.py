@@ -177,8 +177,13 @@ def test_host_shard_and_primary_as_jax(ranks):
     assert initialize_multihost()["process_count"] == 1
     assert is_primary_host() and host_shard([3, 1, 2]) == [3, 1, 2]
     assert make_mesh(device="cpu").world_size == 1
-    with pytest.raises(NotImplementedError, match="6d"):
-        make_mesh(("data", "model"), device="cpu")
+    # a (data, model) mesh (ported with item 6d): one rank here; over two
+    # ranks the model axis sums what each rank holds, as one process sums
+    one = make_mesh(("data", "model"), device="cpu")
+    assert (one.size("data"), one.size("model"), one.index("model")) == (1, 1, 0)
+    for r, res in enumerate(ranks[0]):
+        assert res["model_mesh"] == {"shape": (1, WORLD), "index": r, "next": (r + 1) % WORLD,
+                                     "sum": float(sum(range(WORLD)))}
 
 
 def test_int8_encoder_on_a_sharded_mel_equals_unsharded(ranks):

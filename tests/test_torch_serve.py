@@ -263,7 +263,8 @@ def test_fusion_and_shard_wait_for_their_items(indexed, monkeypatch, capsys):
     """Fusion serving is ported (ROADMAP item 4; held against JAX in
     tests/test_torch_fusion_cli.py): a fusion name indexes, and an index
     whose meta says fusion is refused for a single-modal model, as JAX
-    refuses it. ``--shard`` over several cards still waits for item 6."""
+    refuses it. ``--shard`` came with item 6d: in one process the corpus
+    stays on one card."""
     root, cpath, store, head, jidx, _ = indexed
     conf = json.loads(cpath.read_text())
     conf["model"]["name"] = "whisper-clews"
@@ -285,11 +286,21 @@ def test_fusion_and_shard_wait_for_their_items(indexed, monkeypatch, capsys):
         tserve.QueryEngine(config, str(fidx), head, device="cpu")
     with pytest.raises(ValueError, match="sig mismatch"):
         jserve.QueryEngine(JConfig.from_dict(json.loads(cpath.read_text())), str(fidx), None)
+    # --shard (ported with item 6d) in one process: the corpus stays on one
+    # card, whatever the card count, and an engine on a one-rank mesh answers
+    # as the plain engine (two ranks: tests/test_torch_mesh_commands.py)
+    from wealy_tpu_torch.parallel.mesh import make_mesh
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = tcli.build_parser().parse_args(["query", "--config", str(cpath), "--index", str(jidx),
                                            "--shard", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        tserve._serving_mesh(args)
+    assert tserve._serving_mesh(args) is None
+    meshed = tserve.QueryEngine(config, str(jidx), head, block_size=2, device="cpu",
+                                mesh=make_mesh(device="cpu"))
+    plain = tserve.QueryEngine(config, str(jidx), head, block_size=2, device="cpu")
+    seq = _seq(store, "500")
+    for kw in ({}, {"rerank": 3}, {"pooled": True}):
+        assert meshed.search(seq, k=4, **kw) == plain.search(seq, k=4, **kw)
 
 
 def test_serving_without_card_raises_unless_cpu_is_asked(indexed):

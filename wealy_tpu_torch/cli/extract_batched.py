@@ -32,8 +32,15 @@ Each builds the Whisper model once (``model.whisper_size``, weights from an
 openai-whisper/HF checkpoint or the seeded init of ``load_whisper_model``)
 and returns ``fn(audio)`` for a (B, 480000) batch of 16 kHz chunks. The
 decoder factory takes the float8 KV modes (``cross_kv_f8``,
-``self_kv_f8``); the mesh and tensor-parallel paths (ROADMAP item 6d)
-raise ``NotImplementedError``.
+``self_kv_f8``).
+
+On a mesh (``parallel/mesh.py``, one process per card, every rank running
+the same loop over the same songs) each batch's rows shard over the
+``data`` axis and the outputs are gathered (``shard_rows``): the encoder
+job shards its ``embed_fn``, the decoder factory its ``decode_fn``
+(``mesh``), and ``tp`` > 1 decodes with the tensor-parallel Whisper of a
+(data, model) mesh (``parallel/tp.py``). Only the primary rank writes, so
+the files are those one process writes.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.audio.mel import N_SAMPLES
 from wealy_tpu_torch.cli.extract import load_whisper_model
 from wealy_tpu_torch.models.whisper.extract import chunk_waveform
+from wealy_tpu_torch.parallel.mesh import barrier, shard_rows
 from wealy_tpu_torch.utils.prefetch import prefetch
 from wealy_tpu_torch.utils.profiling import ThroughputMeter, trace_span
 
@@ -115,11 +123,12 @@ def _host(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _schedule(config, metadata, split: str, filename: str, limit, overwrite, skip_fn):
+def _schedule(config, metadata, split: str, filename: str, limit, overwrite, skip_fn, mesh):
     """(store, dataset with the versions to run, number skipped): the first
     ``limit`` versions of the split, less those already stored (or in the
-    ``skip_fn`` sink) unless ``overwrite``. One process, so every version
-    is this process's (the JAX package's ``host_shard`` is the identity)."""
+    ``skip_fn`` sink) unless ``overwrite``. Every rank of a mesh runs every
+    version (its batches shard over the ranks) and takes the same
+    schedule: the ranks meet after it, before the primary writes."""
     from wealy_tpu_torch.data.audio_dataset import AudioDataset
     from wealy_tpu_torch.data.embedding_store import EmbeddingStore
 
@@ -133,15 +142,13 @@ def _schedule(config, metadata, split: str, filename: str, limit, overwrite, ski
         versions = [v for v in ds.versions if not exists(v)]
         skipped = len(ds.versions) - len(versions)
         ds.versions = versions
+    barrier(mesh)
     return store, ds, skipped
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: a batch sharded over several cards waits for ROADMAP item 6d; the port "
-            "extracts on one card"
-        )
+def _writer(mesh, save):
+    """``save`` on the primary rank, nothing elsewhere."""
+    return save if mesh is None or mesh.is_primary else (lambda v, **arrays: None)
 
 
 def _batches(ds, batch_size: int, n_workers: int):
@@ -164,11 +171,12 @@ def _padded(batch, buf: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(buf)
 
 
-def _audit(config, store, metadata, filename: str, sink) -> None:
-    """The store's missing-work lists into ``path.cache``; a custom sink
-    keeps its own account (the npz census would list every version)."""
+def _audit(config, store, metadata, filename: str, sink, mesh) -> None:
+    """The store's missing-work lists into ``path.cache`` (by the primary
+    rank); a custom sink keeps its own account (the npz census would list
+    every version)."""
     audit_dir = config.path.cache or config.path.working_dir
-    if audit_dir and sink is None:
+    if audit_dir and sink is None and (mesh is None or mesh.is_primary):
         store.verify(metadata, filename, out_dir=audit_dir)
 
 
@@ -195,15 +203,18 @@ def extract_split_batched(
     ``sink(version_key, **arrays)`` replaces the per-version npz write (the
     direct-to-pack path of ``extract --pack-direct``) and
     ``skip_fn(version_key)`` the npz-existence resume check to match it.
+    ``mesh``: each batch's rows shard over its ``data`` axis (the outputs
+    gathered), and only the primary rank writes.
 
     Returns {"done": [...], "skipped": n, "incomplete": [...],
     "throughput": ThroughputMeter.report()}.
     """
-    _check_mesh(mesh)
     filename = f"{kind}.npz"
-    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn)
-    save = sink or (lambda v, **arrays: store.save(v, filename, **arrays))
-    meter = ThroughputMeter(window=20)
+    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
+                                   mesh)
+    save = _writer(mesh, sink or (lambda v, **arrays: store.save(v, filename, **arrays)))
+    embed_fn = shard_rows(mesh, embed_fn)
+    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
     accs: Dict[str, _SongAcc] = {}
     done: List[str] = []
     buf = np.zeros((batch_size, N_SAMPLES), np.float32)
@@ -227,7 +238,7 @@ def extract_split_batched(
         if done and len(done) % 200 == 0:
             log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
 
-    _audit(config, store, metadata, filename, sink)
+    _audit(config, store, metadata, filename, sink, mesh)
     # a partly filled accumulator is a fault of this job: reported, not stored
     return {"done": done, "skipped": skipped, "incomplete": sorted(accs),
             "throughput": meter.report()}
@@ -241,6 +252,7 @@ def extract_split_batched_decoder(
     *,
     kind: str = "hs_last_seq",
     batch_size: int = 16,
+    mesh=None,
     limit: Optional[int] = None,
     overwrite: bool = False,
     n_workers: int = 4,
@@ -255,15 +267,18 @@ def extract_split_batched_decoder(
     lengths (B,))``, see :func:`make_decoder_embed_fn`. Chunks of many songs
     share device batches as in :func:`extract_split_batched`; a song stores
     ``hidden (n_chunks, max_len, D)`` + ``lengths`` (``hs_last_all``), or
-    its chunks' valid positions end to end (``hs_last_seq``).
+    its chunks' valid positions end to end (``hs_last_seq``). ``mesh``: the
+    mesh ``decode_fn`` runs on (see :func:`make_decoder_embed_fn`); only
+    its primary rank writes.
     """
     from wealy_tpu_torch.models.whisper.extract import flatten_decoder_sequence
 
     filename = f"{kind}.npz"
     flatten = kind.startswith("hs_last_seq")
-    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn)
-    save = sink or (lambda v, **arrays: store.save(v, filename, **arrays))
-    meter = ThroughputMeter(window=20)
+    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
+                                   mesh)
+    save = _writer(mesh, sink or (lambda v, **arrays: store.save(v, filename, **arrays)))
+    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
     hidden_acc: Dict[str, list] = {}
     length_acc: Dict[str, list] = {}
     done: List[str] = []
@@ -290,22 +305,9 @@ def extract_split_batched_decoder(
         if done and len(done) % 200 == 0:
             log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
 
-    _audit(config, store, metadata, filename, sink)
+    _audit(config, store, metadata, filename, sink, mesh)
     return {"done": done, "skipped": skipped, "incomplete": sorted(hidden_acc),
             "throughput": meter.report()}
-
-
-# the ROADMAP item each option of the embed factories waits for
-_ITEM = {"mesh": "6d", "tp": "6d"}
-
-
-def _refuse(**options) -> None:
-    on = sorted(name for name, value in options.items() if value)
-    if on:
-        raise NotImplementedError(
-            "not in this port yet: "
-            + ", ".join(f"{name} (ROADMAP item {_ITEM[name]})" for name in on)
-        )
 
 
 def _chunks(audio, device) -> torch.Tensor:
@@ -352,15 +354,35 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
     language and task tokens). ``cross_kv_f8`` / ``self_kv_f8`` store the
     decode's cross-attention K/V / self-attention caches in
     ``torch.float8_e4m3fn`` (cast from the compute dtype, upcast at every
-    read), the JAX factory's opt-in bandwidth modes."""
+    read), the JAX factory's opt-in bandwidth modes.
+
+    ``mesh``: the batch's rows shard over its ``data`` axis, each rank
+    decodes its rows and the outputs are gathered (data-parallel greedy
+    decode; the KV caches stay on each rank). ``tp`` > 1: the
+    tensor-parallel Whisper (``parallel/tp.py``) on a (data, model) mesh of
+    the process group's ranks, ``tp`` ranks to a model, the rows sharded
+    over ``data``; not with ``mesh``."""
     from wealy_tpu_torch.models.whisper.extract import decoder_embeddings
 
-    _refuse(mesh=mesh is not None, tp=tp > 1)
     f8 = {"cross_kv_dtype": torch.float8_e4m3fn if cross_kv_f8 else None,
           "self_kv_dtype": torch.float8_e4m3fn if self_kv_f8 else None}
     device = resolve_device(device)
-    model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
-                                     device=device, dtype=dtype)
+    if tp > 1:
+        from wealy_tpu_torch.parallel.tp import make_tp_mesh, tp_module
+
+        if mesh is not None:
+            raise ValueError("pass either mesh (data parallel) or tp (> 1), not both")
+        mesh = make_tp_mesh(tp, device=device)
+        # the whole model on the host, then each rank's shard on its card
+        model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
+                                         device="cpu", dtype=dtype)
+        model = tp_module(model, mesh)
+    else:
+        model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
+                                         device=device if mesh is None else mesh.device,
+                                         dtype=dtype)
+    if mesh is not None:
+        device = mesh.device
 
     @torch.inference_mode()
     def decode_fn(audio):
@@ -368,7 +390,17 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
         out = decoder_embeddings(model, mel, wcfg, language=language, max_len=max_len, **f8)
         return out["hidden"], out["lengths"]
 
-    return decode_fn
+    return shard_rows(mesh, decode_fn)
+
+
+def bf16_head(head, device):
+    """``head`` computing in bf16 on ``device``, its LayerNorms in f32 (the
+    JAX head's ``dtype=jnp.bfloat16``)."""
+    head = head.to(device=device, dtype=torch.bfloat16)
+    for name, module in head.named_modules():
+        if name.endswith("norm"):
+            module.float()
+    return head
 
 
 def make_wealy_embed_fn(config, hf_checkpoint: Optional[str] = None,
@@ -391,10 +423,7 @@ def make_wealy_embed_fn(config, hf_checkpoint: Optional[str] = None,
         head.load_state_dict(read_head_checkpoint(ckpt)[0])
     else:
         seeded_init_(head, seed=0)
-    head = head.to(device=device, dtype=torch.bfloat16)
-    for name, module in head.named_modules():
-        if name.endswith("norm"):
-            module.float()
+    head = bf16_head(head, device)
 
     @torch.inference_mode()
     def embed(audio):

@@ -35,8 +35,18 @@ the window encoder (``models/clews_extract.py``; seeded torch weights).
 ``--self-kv-f8`` (float8 storage of the decode's cross K/V and self caches;
 the one-song-at-a-time path ignores them, as the JAX CLI does).
 ``extract --batched --quant-int8`` runs the W8A8 int8 encoder
-(``models/whisper/quant.py``) for the encoder kind; ``--tp`` above 1
-(ROADMAP item 6d) is parsed and raises ``NotImplementedError``.
+(``models/whisper/quant.py``) for the encoder kind.
+
+Launched with a world size above 1 (``torchrun --nproc-per-node N``, one
+process per card; NCCL on the cards, gloo with ``--device cpu`` or where
+ranks share a card), ``extract --batched``, ``transcribe --batched`` and
+``evaluate`` run on a data mesh (``parallel/``): every rank takes the same
+batches, each computes its rows and the rows are gathered, and rank 0
+alone writes files and prints the JSON line. ``extract --batched --tp N``
+decodes the ``hs_last*`` kinds with the tensor-parallel Whisper over a
+(data, model) mesh, N ranks to a model (``parallel/tp.py``).
+``query`` / ``serve --shard`` split the resident corpus over the ranks
+(``cli/serve.py``).
 ``transcribe`` writes the reference's ``.txt`` trees and the validity
 census (``cli/transcribe.py``): Whisper's long-form algorithm by default,
 ``--greedy`` per-chunk decoding (``--batched``: chunks of many songs per
@@ -146,15 +156,6 @@ def cmd_validate_data(args) -> int:
     return 0 if all(r["ok"] for r in reports.values()) else 1
 
 
-def _refuse_unported(args, kind: str) -> None:
-    """``extract`` options the port parses but does not run yet: each raises
-    naming its ROADMAP item."""
-    items = {"--tp": (args.tp > 1, "6d")}
-    on = [f"{name} (ROADMAP item {item})" for name, (set_, item) in items.items() if set_]
-    if on:
-        raise NotImplementedError(f"extract: not in this port yet: {', '.join(on)}")
-
-
 def _lazy(factory):
     """An embed function built on its first call, so that a run whose every
     version is already stored loads no model."""
@@ -194,7 +195,10 @@ def cmd_extract(args) -> int:
         print("[extract] --pack-direct unsupported for hs_last_all (two-array payload); use "
               "--pack", file=sys.stderr)
         return 2
-    _refuse_unported(args, kind)
+    if args.pack_direct and _world() > 1:
+        print("[extract] --pack-direct is single-process only (each rank would write its own "
+              "pack); extract, then `pack`", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     config = _load_config(args.config)
     md, _ = build_clean_dataset(config, check_audio=True)
@@ -218,6 +222,7 @@ def cmd_extract(args) -> int:
 
     from wealy_tpu_torch.cli import extract_batched as eb
 
+    mesh = process_mesh(args.device)
     sink = skip_fn = writer = None
     if args.pack_direct:
         # completed songs stream straight into the pack; a resume carries the
@@ -243,7 +248,7 @@ def cmd_extract(args) -> int:
             return v in writer
 
     common = dict(kind=kind, batch_size=args.batch_size, limit=args.limit,
-                  overwrite=args.overwrite, sink=sink, skip_fn=skip_fn)
+                  overwrite=args.overwrite, sink=sink, skip_fn=skip_fn, mesh=mesh)
     # a failure mid-run drops the temporary pack (the writer's exit) and goes
     # on; the old pack stays
     with writer or contextlib.nullcontext():
@@ -251,7 +256,8 @@ def cmd_extract(args) -> int:
             language = 0 if kind.endswith("_en") else None
             decode_fn = _lazy(lambda: eb.make_decoder_embed_fn(
                 config, args.hf_checkpoint, language=language, cross_kv_f8=args.cross_kv_f8,
-                self_kv_f8=args.self_kv_f8, device=device))
+                self_kv_f8=args.self_kv_f8, mesh=None if args.tp > 1 else mesh, tp=args.tp,
+                device=device))
             result = eb.extract_split_batched_decoder(config, md, args.split, decode_fn,
                                                       **common)
         else:
@@ -266,11 +272,14 @@ def cmd_extract(args) -> int:
         packed = writer.close()
         print(f"[extract] pack closed: {len(packed)} versions in {packed.bin_path.name}",
               file=sys.stderr)
-    print(json.dumps({"done": len(result["done"]), "skipped": result["skipped"],
-                      "incomplete": result["incomplete"], "throughput": result["throughput"]}))
-    if args.pack:
-        # packing depends only on what is on disk, not on what this run extracted
-        _pack_kind(config, md, kind)
+    if mesh is None or mesh.is_primary:
+        print(json.dumps({"done": len(result["done"]), "skipped": result["skipped"],
+                          "incomplete": result["incomplete"],
+                          "throughput": result["throughput"]}))
+        if args.pack:
+            # packing depends only on what is on disk, not on what this run extracted
+            _pack_kind(config, md, kind)
+    close_mesh(mesh)
     return 0 if not result["incomplete"] else 1
 
 
@@ -299,9 +308,11 @@ def cmd_transcribe(args) -> int:
                   language=None if args.language < 0 else args.language,
                   max_len=args.max_len, limit=args.limit, overwrite=args.overwrite,
                   hf_checkpoint=args.hf_checkpoint, beam_size=args.beam_size, device=device)
+    mesh = None
     if args.batched:
+        mesh = process_mesh(args.device)
         result = transcribe_split_batched(config, md, args.split, batch_size=args.batch_size,
-                                          n_workers=args.n_workers, **common)
+                                          n_workers=args.n_workers, mesh=mesh, **common)
     else:
         result = transcribe_split(config, md, args.split, longform=not args.greedy,
                                   initial_prompt=args.initial_prompt, **common)
@@ -309,7 +320,9 @@ def cmd_transcribe(args) -> int:
     summary.update({k: result[k] for k in ("n_valid", "n_total", "cache_file")})
     if "throughput" in result:
         summary["throughput"] = result["throughput"]
-    print(json.dumps(summary))
+    if mesh is None or mesh.is_primary:
+        print(json.dumps(summary))
+    close_mesh(mesh)
     return 0 if not result["failed"] else 1
 
 
@@ -570,7 +583,7 @@ def cmd_train(args) -> int:
     from wealy_tpu_torch.train.state import create_train_state, make_optimizer
     from wealy_tpu_torch.train.step import make_train_step
 
-    mesh = _train_mesh(args.device)
+    mesh = process_mesh(args.device)
     device = resolve_device(args.device) if mesh is None else mesh.device
     config = _load_config(args.config)
     sig = model_signature(config.model.name)
@@ -650,33 +663,46 @@ def cmd_train(args) -> int:
     last = next((h for h in reversed(writer.history) if "loss" in h), {})
     if primary:
         print(json.dumps({"final_step": int(state.step), "final_loss": last.get("loss")}))
-    if mesh is not None:
-        torch.distributed.barrier()
-        torch.distributed.destroy_process_group()
+    close_mesh(mesh)
     return 0
 
 
-def _train_mesh(device: str):
-    """The data-parallel mesh of a ``train`` launched with a world size
-    above 1 (``torchrun``: NCCL on the cards, gloo with ``--device cpu``),
-    else None: one process, no mesh."""
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+def _world() -> int:
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def process_mesh(device: str):
+    """The data mesh of a command launched with a world size above 1
+    (``torchrun``: NCCL where each process has a card of its own, gloo with
+    ``--device cpu`` or where processes share a card), else None: one
+    process, no mesh."""
+    if _world() <= 1:
         return None
     from wealy_tpu_torch.parallel.mesh import make_mesh
     from wealy_tpu_torch.parallel.multihost import initialize_multihost
 
     resolve_device(device)  # the no-card refusal comes first
-    initialize_multihost(backend="gloo" if device == "cpu" else "nccl")
+    initialize_multihost(backend="gloo" if device == "cpu" else None)
     return make_mesh(device=device)
 
 
-def evaluate(args) -> dict:
-    """The ``evaluate`` command's metrics (MAP, MR1, P@10, n_queries)."""
+def close_mesh(mesh) -> None:
+    """Every rank meets, then the process group ends (no-op without a mesh)."""
+    if mesh is not None:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+
+
+def evaluate(args, mesh=None) -> dict:
+    """The ``evaluate`` command's metrics (MAP, MR1, P@10, n_queries).
+    ``mesh``: the data mesh the head's slabs and the streamed ranks shard
+    over (single-modal models; every rank returns the metrics)."""
     from wealy_tpu_torch.data.dataset import EmbeddingDataset
     from wealy_tpu_torch.models.registry import model_signature
+    from wealy_tpu_torch.parallel.mesh import shard_rows
     from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     config = _load_config(args.config)
     sig = model_signature(config.model.name)
     if sig != "single":
@@ -689,24 +715,27 @@ def evaluate(args) -> dict:
     emb_dim = ds.load_embedding(versions[0]).shape[-1]
     model, _ = load_head(config, emb_dim, args.checkpoint, device)
     pooled = args.streaming and not args.chunk_sets
+    # on a mesh a slab's rows shard over the ranks and the streamed ranks
+    # shard their queries (the slab size is the same either way)
     all_sets, all_masks, labels, ids = embed_split(
-        config, ds, model, song_group=args.song_group, encode_slab=args.encode_slab,
-        pooled=pooled, device=device,
+        config, ds, shard_rows(mesh, model), song_group=args.song_group,
+        encode_slab=args.encode_slab, pooled=pooled, device=device,
     )
     if pooled:
         # corpus-scale ranks over pooled song vectors
         vecs = np.concatenate(all_sets, axis=0)
         ranks, n_rel = streaming_relevant_ranks(
-            vecs, vecs, labels, labels, mode="cos", query_idx=ids, corpus_idx=ids, device=device
+            vecs, vecs, labels, labels, mode="cos", query_idx=ids, corpus_idx=ids, device=device,
+            mesh=mesh,
         )
         return map_from_ranks(ranks, n_rel, topk=(10,))
     # exact chunk-set ranking; streamed, the transient device tensor is one
     # (block, block, s, s) distance block
     sets, set_mask = _pad_chunk_sets(all_sets, all_masks, len(labels))
-    return _chunk_set_metrics(args, sets, set_mask, labels, ids, device)
+    return _chunk_set_metrics(args, sets, set_mask, labels, ids, device, mesh)
 
 
-def _chunk_set_metrics(args, sets, set_mask, labels, ids, device) -> dict:
+def _chunk_set_metrics(args, sets, set_mask, labels, ids, device, mesh=None) -> dict:
     """MAP/MR1/P@10 of chunk sets through ``--redux``: one (S, S) redux, or
     with ``--streaming`` block-streamed ranks (no (S, S) matrix)."""
     from wealy_tpu_torch.eval.retrieval import evaluate_retrieval
@@ -717,7 +746,7 @@ def _chunk_set_metrics(args, sets, set_mask, labels, ids, device) -> dict:
         ranks, n_rel = streaming_relevant_ranks(
             sets, sets, labels, labels, mode="cos", redux=args.redux, query_mask=set_mask,
             corpus_mask=set_mask, block_size=blk, query_block=blk, query_idx=ids,
-            corpus_idx=ids, device=device,
+            corpus_idx=ids, device=device, mesh=mesh,
         )
         return map_from_ranks(ranks, n_rel, topk=(10,))
     metrics = evaluate_retrieval(sets, set_mask, labels, version_ids=ids, redux=args.redux,
@@ -823,7 +852,11 @@ def _evaluate_mm_test_mode(args, config, sig: str, device) -> dict:
 
 
 def cmd_evaluate(args) -> int:
-    print(json.dumps(evaluate(args)))
+    mesh = process_mesh(args.device)
+    metrics = evaluate(args, mesh)
+    if mesh is None or mesh.is_primary:
+        print(json.dumps(metrics))
+    close_mesh(mesh)
     return 0
 
 
@@ -863,7 +896,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batched extraction writes straight to the mmap pack (no per-version "
                    "npz); a resume carries the old pack forward. Not for hs_last_all")
     e.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (ROADMAP item 6d; above 1 raises here)")
+                   help="tensor-parallel degree of the hs_last* kinds under --batched: the "
+                   "world's ranks form (data, model) groups of this many (torchrun)")
     e.add_argument("--self-kv-f8", action="store_true",
                    help="store the decode's self-attention KV caches in float8 (--batched "
                    "decoder kinds)")
@@ -1019,8 +1053,8 @@ def _add_serving_parsers(sub) -> None:
                             help="keep the corpus chunk sets in host memory and upload per "
                             "block per query instead of the device-resident corpus")
         parser.add_argument("--shard", action="store_true",
-                            help="shard the resident corpus over the local cards (one card "
-                            "only in this port)")
+                            help="shard the resident corpus over the ranks of a world of "
+                            "several processes (torchrun, one per card)")
         parser.add_argument("--wealy-head-checkpoint", default=None,
                             help="fusion indexes of the wealy signature: the WEALY head that "
                             "embeds an audio query's chunks (default: the seeded head)")

@@ -35,7 +35,15 @@ signature or the greedy decode's ``hs_last_seq`` for the two-stream one. As
 in JAX, a fusion engine refuses ``--rerank``, ``--quantize`` and
 embedding queries.
 
-Not in this slice: ``--shard`` over more than one card (ROADMAP item 6d).
+``--shard`` under a world size above 1 (``torchrun``, one process per
+card) splits the resident corpus rows over the ranks: each rank holds
+``n / W`` songs (padded to whole blocks) on its card and scores its own
+blocks with K4, and the (Q, n) distances are gathered, so every rank ranks
+the whole corpus. ``query --shard`` runs the same queries on every rank and
+rank 0 prints; the ``serve`` daemon's HTTP server lives on rank 0, which
+broadcasts each search (and ``/reload``, and its shutdown) to the other
+ranks, which wait for them. A two-stage search (``--rerank``) scores its
+shortlist through the host path, as the JAX mesh engine does.
 """
 
 from __future__ import annotations
@@ -433,11 +441,13 @@ class QueryEngine:
     def __init__(self, config, index_path: str, checkpoint: Optional[str],
                  redux: str = "bpwr", block_size: int = 512, resident: bool = True,
                  quantize: Optional[str] = None, wealy_head_checkpoint: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
         self.redux = redux
         self.block_size = max(1, block_size)
-        self.device = resolve_device(device)
+        # a mesh of one rank (or none) keeps the corpus whole on this card
+        self.mesh = mesh if mesh is not None and mesh.active("data") else None
+        self.device = resolve_device(device) if self.mesh is None else self.mesh.device
         self._wealy_head_checkpoint = wealy_head_checkpoint
         self.meta = read_index_meta(index_path, config)
         with np.load(index_path, allow_pickle=False) as idx:
@@ -475,16 +485,35 @@ class QueryEngine:
                              "--no-resident; pooled-only indexes have no chunk sets)")
         self._quantized = self._resident and quantize == "int8"
         if self._resident:
-            sets, scale = self.sets, None
+            sets, mask, scale = self.sets, self.set_mask, None
             if self._quantized:
                 sets, scale = _quantize_int8(self.sets)
-                # the host f16 copy would serve only the host fallbacks, which
-                # the quantized engine does not take
-                self.sets = None
+                if self.mesh is None:
+                    # the host f16 copy would serve only the host fallbacks,
+                    # which the quantized engine does not take on one card
+                    self.sets = None
+            if self.mesh is not None:
+                sets, mask, scale = self._rank_rows(sets, mask, scale)
             self._sets_dev = torch.from_numpy(sets).to(self.device)
-            self._mask_dev = torch.from_numpy(self.set_mask).to(self.device)
+            self._mask_dev = torch.from_numpy(mask).to(self.device)
             if scale is not None:
                 self._scale_dev = torch.from_numpy(scale).to(self.device)
+
+    def _rank_rows(self, sets, mask, scale):
+        """This rank's rows of the corpus: padded with empty songs to whole
+        ``block_size`` blocks on every rank, then the rank's contiguous
+        share."""
+        n, W = sets.shape[0], self.mesh.size("data")
+        per = -(-n // (self.block_size * W)) * self.block_size
+        lo = self.mesh.index("data") * per
+
+        def rows(a):
+            out = np.zeros((per, *a.shape[1:]), a.dtype)
+            part = a[lo : lo + per]
+            out[: part.shape[0]] = part
+            return out
+
+        return rows(sets), rows(mask), None if scale is None else rows(scale)
 
     def release(self) -> None:
         """Drop the resident device tensors (before a replacement engine
@@ -512,11 +541,17 @@ class QueryEngine:
         from wealy_tpu_torch.eval.retrieval import song_distance_matrix_torch
 
         n = self._sets_dev.shape[0]
-        return torch.cat([
+        d = torch.cat([
             song_distance_matrix_torch(q, qm, *self._corpus_block(slice(b, b + self.block_size)),
                                        redux=self.redux)
             for b in range(0, n, self.block_size)
         ], dim=1)
+        if self.mesh is None:
+            return d
+        from wealy_tpu_torch.parallel.mesh import all_gather
+
+        # every rank's (Q, n / W) distances, the padding rows dropped
+        return all_gather(self.mesh, d, "data", dim=1)[:, : len(self.keys)]
 
     def _rerank_resident(self, q, qm, cand) -> torch.Tensor:
         """Each query against its own shortlist ``cand`` (Q, R), gathered from
@@ -608,7 +643,7 @@ class QueryEngine:
             if two_stage:
                 cand = np.argpartition(-cos, rerank - 1, axis=1)[:, :rerank]
                 cand.sort(axis=1)  # ascending: contiguous gather reads
-            if self._resident:
+            if self._resident and not (two_stage and self.mesh is not None):
                 q = torch.from_numpy(qsets).to(self.device)
                 qm = torch.from_numpy(qmask).to(self.device)
                 d = (self._rerank_resident(q, qm, torch.from_numpy(cand).to(self.device))
@@ -695,12 +730,15 @@ def _quantize_int8(sets: np.ndarray, rows: int = 65536):
 
 
 def _serving_mesh(args):
-    """None: the corpus lives on one card. ``--shard`` with more than one
-    local card raises (ROADMAP item 6d)."""
-    if getattr(args, "shard", False) and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--shard over several cards is ROADMAP item 6d; this port "
-                                  "serves from one card")
-    return None
+    """The data mesh the corpus shards over with ``--shard`` in a world of
+    several processes (``torchrun``: NCCL on the cards, gloo with
+    ``--device cpu``); None otherwise: the corpus lives on one card. Making
+    a data mesh runs no collective, so each engine build asks again."""
+    if not getattr(args, "shard", False):
+        return None
+    from wealy_tpu_torch.cli.main import process_mesh
+
+    return process_mesh(args.device)
 
 
 def _load_seq(path: str) -> np.ndarray:
@@ -710,23 +748,24 @@ def _load_seq(path: str) -> np.ndarray:
 
 
 def _build_engine(args, config) -> QueryEngine:
-    _serving_mesh(args)
     return QueryEngine(
         config, args.index, args.checkpoint, redux=args.redux, block_size=args.block_size,
         resident=not args.no_resident, quantize=args.quantize,
         wealy_head_checkpoint=args.wealy_head_checkpoint, device=args.device,
+        mesh=_serving_mesh(args),
     )
 
 
 def cmd_query(args) -> int:
     """Answer queries against an index file (one-shot CLI)."""
-    from wealy_tpu_torch.cli.main import _load_config
+    from wealy_tpu_torch.cli.main import _load_config, close_mesh
 
     resolve_device(args.device)
     config = _load_config(args.config)
     if not (args.audio or args.query_embeddings):
         print("[query] no --audio or --query-embeddings given", file=sys.stderr)
         return 2
+    mesh = _serving_mesh(args)
     try:  # an error answer, never a fallback
         engine = _build_engine(args, config)
         if engine.fusion and args.query_embeddings:
@@ -739,8 +778,10 @@ def cmd_query(args) -> int:
     queries.extend((p, engine.embed_audio(p)) for p in args.audio or [])
     outs = engine.search_many([s for _, s in queries], k=args.k, pooled=args.pooled,
                               rerank=args.rerank)
-    for (name, _), out in zip(queries, outs):
-        print(json.dumps({"query": name, **out}))
+    if mesh is None or mesh.is_primary:  # every rank scored its share; one prints
+        for (name, _), out in zip(queries, outs):
+            print(json.dumps({"query": name, **out}))
+    close_mesh(mesh)
     return 0
 
 
@@ -859,14 +900,19 @@ class SearchDaemon:
     Searches run on the collector thread and audio embeds on the request
     threads; each enters ``torch.inference_mode`` itself (grad mode is
     per thread).
+
+    On a ``--shard`` mesh this is rank 0's daemon: each search, reload and
+    the shutdown are broadcast first to the other ranks, which run them on
+    their shares of the corpus (:func:`_follow`).
     """
 
-    def __init__(self, args):
+    def __init__(self, args, mesh=None):
         from http.server import ThreadingHTTPServer
 
         from wealy_tpu_torch.cli.main import _load_config
 
         self.args = args
+        self.mesh = mesh
         self.config = _load_config(args.config)
         self.engine = _build_engine(args, self.config)
         self.search_lock = threading.Lock()
@@ -881,11 +927,19 @@ class SearchDaemon:
     def url(self) -> str:
         return f"http://{self.args.host}:{self.server.server_address[1]}"
 
+    def _lead(self, *msg) -> None:
+        """Send ``msg`` to the other ranks of the mesh (nothing without one)."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.broadcast_object_list([msg], src=0)
+
     def _dispatch(self, seqs, opts):
-        k, pooled, rerank = opts
         with self.search_lock:
             if self.failed:
                 raise RuntimeError(self.failed)
+            self._lead("search", seqs, opts)
+            k, pooled, rerank = opts
             return self.engine.search_many(seqs, k=k, pooled=pooled, rerank=rerank)
 
     def warmup(self) -> float:
@@ -902,7 +956,7 @@ class SearchDaemon:
                 w.setsampwidth(2)
                 w.setframerate(16000)
                 w.writeframes(b"\x00\x00" * (16000 * 30))
-            self.engine.search_many([self.engine.embed_audio(path)], k=1)
+            self._dispatch([self.engine.embed_audio(path)], (1, False, 0))
         return time.perf_counter() - t0
 
     def reload(self) -> dict:
@@ -915,6 +969,7 @@ class SearchDaemon:
             old_n, old_fn, old_step = len(old.keys), old._audio_fn, old.checkpoint_step
             old_meta = dict(old.meta)
             old.release()  # the engine object stays for its keys and meta, its tensors go
+            self._lead("reload")
             try:  # an error answer, never a fallback
                 new = _build_engine(self.args, self.config)
             except Exception as e:  # noqa: BLE001 - the daemon must not die
@@ -942,6 +997,36 @@ class SearchDaemon:
             self._thread.join(30)
         self.server.server_close()
         self.batcher.close()
+        with self.search_lock:
+            self._lead("stop")
+
+
+def _follow(args, mesh) -> None:
+    """A rank other than 0 of a ``--shard`` daemon: its share of the corpus
+    on its card, running each search and reload rank 0 broadcasts, until
+    rank 0 stops. A search that raises here raised on rank 0 too (the same
+    queries), which answered it with an error; the loop goes on."""
+    import torch.distributed as dist
+
+    from wealy_tpu_torch.cli.main import _load_config
+
+    config = _load_config(args.config)
+    engine = _build_engine(args, config)
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        op, *rest = box[0]
+        if op == "stop":
+            return
+        if op == "reload":
+            engine.release()
+            engine = _build_engine(args, config)
+            continue
+        seqs, (k, pooled, rerank) = rest
+        try:  # an error answer, never a fallback
+            engine.search_many(seqs, k=k, pooled=pooled, rerank=rerank)
+        except Exception as e:  # noqa: BLE001 - rank 0 answered this search with an error
+            print(f"[serve rank {mesh.rank}] search failed: {e}", file=sys.stderr)
 
 
 def _handler(daemon: SearchDaemon):
@@ -1022,8 +1107,15 @@ def _handler(daemon: SearchDaemon):
 @contextlib.contextmanager
 def serving(args):
     """A :class:`SearchDaemon` serving on a background thread for the
-    ``with`` block, shut down when it ends."""
-    with contextlib.closing(SearchDaemon(args).start()) as daemon:
+    ``with`` block, shut down when it ends. On a ``--shard`` mesh, rank 0
+    serves; another rank follows its searches until it stops, then enters
+    the block with None."""
+    mesh = _serving_mesh(args)
+    if mesh is not None and not mesh.is_primary:
+        _follow(args, mesh)
+        yield None
+        return
+    with contextlib.closing(SearchDaemon(args, mesh).start()) as daemon:
         yield daemon
 
 
@@ -1032,8 +1124,12 @@ def cmd_serve(args) -> int:
     and the index load once. Prints ``{"serving": url, "indexed": n}`` when
     it accepts requests (after ``{"warmup_s": s}`` with ``--warmup``)."""
     resolve_device(args.device)
+    mesh = _serving_mesh(args)
+    if mesh is not None and not mesh.is_primary:
+        _follow(args, mesh)
+        return 0
     try:  # an error answer, never a fallback
-        daemon = SearchDaemon(args)
+        daemon = SearchDaemon(args, mesh)
     except ValueError as e:
         print(f"[serve] {e}", file=sys.stderr)
         return 2

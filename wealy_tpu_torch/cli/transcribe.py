@@ -14,7 +14,10 @@ indexes the tree with :class:`TranscriptionCache` and runs the
   through :func:`make_transcribe_fn` (mel K1 -> encoder K2/K3 -> greedy or
   beam decode). A partial last batch is decoded at its own size, not padded
   to ``batch_size`` (the JAX driver pads for one compile; rows do not
-  depend on the batch's other rows either way).
+  depend on the batch's other rows either way). On a mesh every rank runs
+  the same batches, each decodes its rows of a batch that divides the
+  ``data`` axis (the rows gathered; another batch runs whole), and only
+  the primary rank writes the files and the census.
 
 Token ids become text through the offline byte-level BPE
 (:mod:`wealy_tpu_torch.data.tokenizer`) when a vocabulary directory is
@@ -37,7 +40,7 @@ import torch
 from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.cli.extract import _SongFailure, load_whisper_model
-from wealy_tpu_torch.cli.extract_batched import _batches, _check_mesh, _chunks
+from wealy_tpu_torch.cli.extract_batched import _batches, _chunks
 from wealy_tpu_torch.data.audio_dataset import AudioDataset
 from wealy_tpu_torch.data.tokenizer import ByteLevelBPE
 from wealy_tpu_torch.data.transcription import TranscriptionCache, TranscriptionValidator
@@ -49,6 +52,7 @@ from wealy_tpu_torch.models.whisper.generate import (
     greedy_decode,
 )
 from wealy_tpu_torch.models.whisper.longform import transcribe_longform
+from wealy_tpu_torch.parallel.mesh import barrier, shard_rows
 from wealy_tpu_torch.utils.profiling import ThroughputMeter
 
 
@@ -183,9 +187,10 @@ def make_transcribe_fn(config, hf_checkpoint=None, *, language: Optional[int] = 
     greedy decode, or beam search with ``beam_size`` > 1 (the beams of each
     chunk ride the batch). ``fn(audio (B, 480000)) -> (tokens (B,
     max_len), lengths (B,))`` on ``device``; ``fn.prompt_len`` is the
-    prompt's length. A mesh over several cards waits for ROADMAP item 6d."""
-    _check_mesh(mesh)
-    device = resolve_device(device)
+    prompt's length. ``mesh``: a batch whose rows divide its ``data`` axis
+    shards over the ranks and the outputs are gathered (``shard_rows``);
+    the model lives on the mesh's card."""
+    device = resolve_device(device) if mesh is None else mesh.device
     model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
                                      device=device)
     prompt = default_prompt(wcfg, language=language)
@@ -197,6 +202,7 @@ def make_transcribe_fn(config, hf_checkpoint=None, *, language: Optional[int] = 
         out = _decode(model, model.encode(mel), wcfg, prompt, max_len, suppress, beam_size)
         return out["tokens"], out["lengths"]
 
+    fn = shard_rows(mesh, fn)
     fn.prompt_len = len(prompt)
     return fn
 
@@ -229,9 +235,10 @@ def transcribe_split_batched(
     no model). Long-form decoding stays on :func:`transcribe_split` (its
     chunk-to-chunk prompt serialises each song).
 
-    Returns the census dict plus "incomplete" and "throughput"."""
+    Returns the census dict (on a mesh, the primary rank's; the others have
+    no census: ``n_valid`` None) plus "incomplete" and "throughput"."""
     tokenizer = ByteLevelBPE.from_dir(tokenizer_dir) if tokenizer_dir else None
-    _check_mesh(mesh)
+    primary = mesh is None or mesh.is_primary
     ds = AudioDataset(metadata, split, config.path.data)
     root = _transcription_root(config, split)
 
@@ -245,8 +252,9 @@ def transcribe_split_batched(
     if not overwrite:
         skipped = [v for v in versions if out_path(v).exists()]
         ds.versions = [v for v in versions if not out_path(v).exists()]
+    barrier(mesh)  # every rank takes the same schedule before the primary writes
 
-    meter = ThroughputMeter(window=20)
+    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
     pieces: dict = {}  # version -> per chunk its token ids (None until decoded)
     done: list = []
     failed: list = []
@@ -254,13 +262,14 @@ def transcribe_split_batched(
     def finish(version_key: str) -> None:
         text = " ".join(_text(ids, tokenizer).strip() for ids in pieces.pop(version_key))
         with _SongFailure(version_key, failed, log, tag="transcribe-batched"):
-            out_path(version_key).write_text(text.strip() + "\n")
+            if primary:
+                out_path(version_key).write_text(text.strip() + "\n")
             done.append(version_key)
 
     for batch in _batches(ds, batch_size, n_workers):
         if transcribe_fn is None:
             transcribe_fn = make_transcribe_fn(
-                config, hf_checkpoint, language=language, max_len=max_len,
+                config, hf_checkpoint, language=language, max_len=max_len, mesh=mesh,
                 beam_size=beam_size, tokenizer=tokenizer, device=device,
             )
         prompt_len = getattr(transcribe_fn, "prompt_len", 0)
@@ -275,7 +284,11 @@ def transcribe_split_batched(
         if done and len(done) % 200 == 0:
             log(f"[transcribe-batched] {len(done)} songs, {meter.items_per_sec:.1f} chunks/s")
 
-    result = _census_result(config, root, split, versions, done, skipped, failed)
+    if primary:
+        result = _census_result(config, root, split, versions, done, skipped, failed)
+    else:  # the primary rank writes the census
+        result = {"done": done, "skipped": skipped, "failed": failed, "n_valid": None,
+                  "n_total": len(versions), "cache_file": None}
     result["incomplete"] = sorted(pieces)
     result["throughput"] = meter.report()
     return result

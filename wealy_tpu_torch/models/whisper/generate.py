@@ -75,13 +75,15 @@ def default_suppress_tokens(config: WhisperConfig, tokenizer=None) -> list[int]:
 
 
 def init_kv_caches(
-    config: WhisperConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
+    config: WhisperConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+    n_head: Optional[int] = None,
 ):
     """Per-layer self-attention caches: k (pre-scaled) and v, each
     (B, H, max_len, Dh), at ``dtype`` (float8 for the opt-in storage).
-    ``Whisper.decode`` writes them in place."""
-    H = config.n_text_head
-    Dh = config.n_text_state // H
+    ``Whisper.decode`` writes them in place. ``n_head``: the heads a
+    tensor-parallel rank holds (default the config's)."""
+    Dh = config.n_text_state // config.n_text_head
+    H = config.n_text_head if n_head is None else n_head
     return [
         (
             torch.zeros((batch, H, max_len, Dh), dtype=dtype, device=device),
@@ -207,7 +209,8 @@ def greedy_decode(
     tokens = torch.full((B, max_len), eot, dtype=torch.long, device=dev)
     tokens[:, :P] = torch.tensor(list(prompt), dtype=torch.long, device=dev)
     hidden_buf = torch.zeros((B, max_len, config.n_text_state), dtype=model.dtype, device=dev)
-    caches = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype, device=dev)
+    caches = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype, device=dev,
+                            n_head=model.decoder.blocks[0].attn.n_head)
     suppress = suppress_mask(config, suppress_tokens, dev)
 
     # per-step operands made once: the cross-attention K/V and the logit

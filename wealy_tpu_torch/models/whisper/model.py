@@ -23,6 +23,15 @@ JAX model:
   (:meth:`WhisperDecoder.rounded_embedding`), instead of rounding it every
   step.
 
+Tensor parallelism (``parallel/tp.py``): built with a ``tp`` context, an
+attention module holds ``n_head / n`` heads of the ``n`` ranks of the
+``model`` axis (q/k/v column-parallel, its out-projection row-parallel) and
+an MLP ``4D / n`` hidden columns; the row-parallel partial sums are reduced
+over the axis (reduce-scattered along time under sequence parallelism) and
+their bias is added once, after the reduction. The same kernels run on each
+rank's contiguous shard: K2 at the rank's heads, K3 with the rank's
+columns and a zero ``b2``.
+
 Self-attention KV caches are (B, H, Tmax, Dh) for k (pre-scaled by
 Dh**-0.25) and v, and are updated IN PLACE by ``decode``; attention reads
 only the filled prefix [0, cache_index + T). A cache (or a precomputed
@@ -69,31 +78,53 @@ def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
 
 
-class MultiHeadAttention(nn.Module):
-    """Whisper MHA: q and k scaled by Dh**-0.25 each, ``key`` has no bias."""
+def _tp_heads(n_head: int, tp) -> int:
+    n = 1 if tp is None else tp.size
+    if n_head % n:
+        raise ValueError(f"{n_head} heads do not split over {n} model ranks")
+    return n_head // n
 
-    def __init__(self, n_state: int, n_head: int, dtype=torch.bfloat16, device=None):
+
+class MultiHeadAttention(nn.Module):
+    """Whisper MHA: q and k scaled by Dh**-0.25 each, ``key`` has no bias.
+    With ``tp``, the rank's ``n_head / n`` heads (``n_head`` is then the
+    rank's count)."""
+
+    def __init__(self, n_state: int, n_head: int, dtype=torch.bfloat16, device=None, tp=None):
         super().__init__()
-        self.n_head = n_head
+        self.tp = tp
+        self.n_head = _tp_heads(n_head, tp)
+        self.head_dim = n_state // n_head
+        inner = self.n_head * self.head_dim
         kw = dict(dtype=dtype, device=device)
-        self.query = nn.Linear(n_state, n_state, **kw)
-        self.key = nn.Linear(n_state, n_state, bias=False, **kw)
-        self.value = nn.Linear(n_state, n_state, **kw)
-        self.out = nn.Linear(n_state, n_state, **kw)
+        self.query = nn.Linear(n_state, inner, **kw)
+        self.key = nn.Linear(n_state, inner, bias=False, **kw)
+        self.value = nn.Linear(n_state, inner, **kw)
+        self.out = nn.Linear(inner, n_state, **kw)
 
     def cross_kv(self, xa: torch.Tensor):
         """Decode-layout (k pre-scaled, v), each (B, H, Tk, Dh), from memory xa."""
-        B, Tk, D = xa.shape
-        H = self.n_head
-        scale = (D // H) ** -0.25
-        k = (self.key(xa).view(B, Tk, H, -1) * scale).transpose(1, 2).contiguous()
-        v = self.value(xa).view(B, Tk, H, -1).transpose(1, 2).contiguous()
+        if self.tp is not None:
+            xa = self.tp.copy(xa)
+        B, Tk, _ = xa.shape
+        H, Dh = self.n_head, self.head_dim
+        k = (self.key(xa).view(B, Tk, H, Dh) * Dh**-0.25).transpose(1, 2).contiguous()
+        v = self.value(xa).view(B, Tk, H, Dh).transpose(1, 2).contiguous()
         return k, v
 
+    def _project(self, o: torch.Tensor) -> torch.Tensor:
+        """The out-projection; under TP row-parallel, its bias added once
+        after the reduction."""
+        if self.tp is None:
+            return self.out(o)
+        return self.tp.exit(F.linear(o, self.out.weight), self.out.bias)
+
     def forward(self, x, xa=None, mask=None, kv_cache=None, cache_index=None, xa_kv=None):
-        B, Tq, D = x.shape
-        H = self.n_head
-        Dh = D // H
+        if self.tp is not None:
+            x = self.tp.enter(x)
+            xa = None if xa is None else self.tp.copy(xa)
+        B, Tq, _ = x.shape
+        H, Dh = self.n_head, self.head_dim
         scale = Dh**-0.25
         q = self.query(x).view(B, Tq, H, Dh)
         if xa_kv is not None:
@@ -105,7 +136,7 @@ class MultiHeadAttention(nn.Module):
 
         if mask is None and kv_cache is None and xa is None and xa_kv is None and Tq >= 256:
             out = flash_mha(q, k, v, Dh**-0.5)
-            return self.out(out.reshape(B, Tq, D).to(x.dtype))
+            return self._project(out.reshape(B, Tq, H * Dh).to(x.dtype))
 
         if kv_cache is not None:
             ck, cv = kv_cache
@@ -137,27 +168,29 @@ class MultiHeadAttention(nn.Module):
                 logits = logits + mask
             w = torch.softmax(logits, dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float())
-        return self.out(out.reshape(B, Tq, D).to(x.dtype))
+        return self._project(out.reshape(B, Tq, H * Dh).to(x.dtype))
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN attention (+ cross-attention) + MLP block."""
+    """Pre-LN attention (+ cross-attention) + MLP block (with ``tp``, the
+    rank's heads and ``4 * n_state / n`` MLP columns)."""
 
     def __init__(
         self, n_state: int, n_head: int, cross_attention: bool = False,
-        dtype=torch.bfloat16, device=None,
+        dtype=torch.bfloat16, device=None, tp=None,
     ):
         super().__init__()
         self.dtype = dtype
-        self.attn = MultiHeadAttention(n_state, n_head, dtype, device)
+        self.tp = tp
+        self.attn = MultiHeadAttention(n_state, n_head, dtype, device, tp)
         self.attn_ln = nn.LayerNorm(n_state, eps=1e-5, device=device)
         self.cross_attn = (
-            MultiHeadAttention(n_state, n_head, dtype, device) if cross_attention else None
+            MultiHeadAttention(n_state, n_head, dtype, device, tp) if cross_attention else None
         )
         self.cross_attn_ln = (
             nn.LayerNorm(n_state, eps=1e-5, device=device) if cross_attention else None
         )
-        n_mlp = 4 * n_state
+        n_mlp = 4 * n_state // (1 if tp is None else tp.size)
         self.mlp = nn.Sequential(
             nn.Linear(n_state, n_mlp, dtype=dtype, device=device),
             nn.GELU(),
@@ -176,21 +209,33 @@ class ResidualAttentionBlock(nn.Module):
             x = x + self.cross_attn(_ln(self.cross_attn_ln, x), xa=xa, xa_kv=xa_kv)
         h = _ln(self.mlp_ln, x)
         fc1, fc2 = self.mlp[0], self.mlp[2]
+        # under TP the rank's partial sum takes a zero b2; fc2's bias is
+        # added once, after the reduction
+        b2 = fc2.bias if self.tp is None else torch.zeros_like(fc2.bias)
+        if self.tp is not None:
+            h = self.tp.enter(h)
         if self.dtype == torch.bfloat16 and h.shape[1] >= 256:
-            return x + fused_mlp(h, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
-        h = F.linear(h, fc1.weight) + fc1.bias.to(h.dtype)
-        h = F.gelu(h, approximate="none")
-        h = F.linear(h, fc2.weight) + fc2.bias.to(h.dtype)
+            h = fused_mlp(h, fc1.weight, fc1.bias, fc2.weight, b2)
+        else:
+            h = F.linear(h, fc1.weight) + fc1.bias.to(h.dtype)
+            h = F.gelu(h, approximate="none")
+            h = F.linear(h, fc2.weight) + b2.to(h.dtype)
+        if self.tp is not None:
+            h = self.tp.exit(h, fc2.bias)
         return x + h
 
 
 class WhisperEncoder(nn.Module):
-    """Mel (B, n_mels, 3000) -> audio states (B, 1500, D)."""
+    """Mel (B, n_mels, 3000) -> audio states (B, 1500, D). With a ``tp``
+    context of sequence parallelism, the residual stream between blocks
+    holds this rank's ``T / n`` time steps."""
 
-    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None, tp=None):
         super().__init__()
         D = config.n_audio_state
+        self.config = config
         self.dtype = dtype
+        self.tp = tp
         kw = dict(dtype=dtype, device=device)
         self.conv1 = nn.Conv1d(config.n_mels, D, 3, padding=1, **kw)
         self.conv2 = nn.Conv1d(D, D, 3, stride=2, padding=1, **kw)
@@ -200,17 +245,26 @@ class WhisperEncoder(nn.Module):
             torch.from_numpy(sinusoids(config.n_audio_ctx, D)).to(device)
         )
         self.blocks = nn.ModuleList(
-            ResidualAttentionBlock(D, config.n_audio_head, dtype=dtype, device=device)
+            ResidualAttentionBlock(D, config.n_audio_head, dtype=dtype, device=device, tp=tp)
             for _ in range(config.n_audio_layer)
         )
         self.ln_post = nn.LayerNorm(D, eps=1e-5, device=device)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def stem(self, mel: torch.Tensor) -> torch.Tensor:
+        """The conv stem and the position table: mel -> (B, T, D)."""
         x = F.gelu(self.conv1(mel.to(self.dtype)), approximate="none")
         x = F.gelu(self.conv2(x), approximate="none").transpose(1, 2)  # (B, T, D)
-        x = x + self.positional_embedding[: x.shape[1]].to(self.dtype)
+        return x + self.positional_embedding[: x.shape[1]].to(self.dtype)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = self.stem(mel)
+        sp = self.tp is not None and self.tp.sequence_parallel
+        if sp:
+            x = self.tp.split_time(x)
         for block in self.blocks:
             x = block(x)
+        if sp:
+            x = self.tp.gather_time(x)
         return _ln(self.ln_post, x)
 
 
@@ -222,9 +276,10 @@ class WhisperDecoder(nn.Module):
     against the self-attention caches, which it updates in place.
     """
 
-    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None, tp=None):
         super().__init__()
         D = config.n_text_state
+        self.config = config
         self.dtype = dtype
         self.token_embedding = nn.Embedding(config.n_vocab, D, device=device)
         self.positional_embedding = nn.Parameter(
@@ -232,7 +287,7 @@ class WhisperDecoder(nn.Module):
         )
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(
-                D, config.n_text_head, cross_attention=True, dtype=dtype, device=device
+                D, config.n_text_head, cross_attention=True, dtype=dtype, device=device, tp=tp
             )
             for _ in range(config.n_text_layer)
         )
@@ -299,14 +354,16 @@ class WhisperDecoder(nn.Module):
 
 
 class Whisper(nn.Module):
-    """Full encoder-decoder with ``encode`` / ``decode`` / ``precompute_cross_kv``."""
+    """Full encoder-decoder with ``encode`` / ``decode`` / ``precompute_cross_kv``
+    (``tp``: the tensor-parallel context of both stacks; sequence
+    parallelism applies to the encoder only)."""
 
-    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None, tp=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        self.encoder = WhisperEncoder(config, dtype, device)
-        self.decoder = WhisperDecoder(config, dtype, device)
+        self.encoder = WhisperEncoder(config, dtype, device, tp)
+        self.decoder = WhisperDecoder(config, dtype, device, None if tp is None else tp.plain())
 
     @property
     def device(self) -> torch.device:

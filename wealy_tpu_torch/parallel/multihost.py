@@ -28,14 +28,17 @@ def initialize_multihost(
     """Initialise ``torch.distributed`` when running several processes (the
     ``torchrun`` environment with a world size above 1, or explicit
     arguments, ``coordinator_address`` as ``host:port``); a no-op, with a
-    report, in one process or once initialised. ``backend``: NCCL where a
-    card is present, else gloo; with NCCL the process's card
-    (``LOCAL_RANK``, else its index modulo the card count) becomes the
-    current device first."""
+    report, in one process or once initialised. ``backend``: NCCL where
+    every local process has a card of its own, else gloo (NCCL refuses two
+    ranks on one card; gloo stages their tensors through the host); with
+    NCCL the process's card (``LOCAL_RANK``, else its index modulo the card
+    count) becomes the current device first."""
     world = int(num_processes or os.environ.get("WORLD_SIZE", "1"))
     if not dist.is_initialized() and (coordinator_address or world > 1):
         rank = int(process_id if process_id is not None else os.environ["RANK"])
-        backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        backend = backend or ("nccl" if torch.cuda.is_available()
+                              and local_ranks <= torch.cuda.device_count() else "gloo")
         if backend == "nccl":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
                                                      rank % torch.cuda.device_count())))

@@ -1,11 +1,14 @@
-"""Corpus-scale exact ranking without the (Q, N) matrix, single device: the
-counterpart of ``wealy_tpu.parallel.similarity`` (``relevant_columns``,
-``streaming_relevant_ranks``, ``map_from_ranks``; the mesh-sharded paths
-and ``sharded_topk`` come with the ``parallel/`` slice).
+"""Sharded all-pairs similarity and corpus-scale exact ranking without the
+(Q, N) matrix: the counterpart of ``wealy_tpu.parallel.similarity``.
 
 Eager torch takes the place of ``jit`` and ``lax.scan``: Python loops over
 query slabs and corpus blocks, each block's (q_block, block) score slab made
-on the device, consumed and dropped.
+on the device, consumed and dropped. On a mesh (``parallel/mesh.py``) the
+query rows shard over the ``data`` axis: each rank scores its contiguous
+slice of the queries against the whole corpus on its card, and the rows are
+gathered back, so every rank returns the whole result
+(:func:`sharded_pairwise_distance`, :func:`sharded_topk`,
+:func:`streaming_relevant_ranks` with ``mesh``).
 """
 
 from __future__ import annotations
@@ -19,11 +22,78 @@ import torch
 from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.eval.retrieval import song_distance_matrix_torch
 from wealy_tpu_torch.ops.distance import pairwise_distance_matrix
+from wealy_tpu_torch.parallel.mesh import Mesh, all_gather, local_chunk
 
 logger = logging.getLogger(__name__)
 
 # bound on the (q_block, slots, block) comparison tensor of one count step
 _COUNT_ELEMENTS = 1 << 26
+
+
+def _query_shard(mesh: Mesh, x) -> Tuple[torch.Tensor, int]:
+    """This data rank's contiguous slice of the rows of ``x`` (padded with
+    zero rows to a multiple of the data axis), on the mesh's device, and
+    the real row count."""
+    x = torch.as_tensor(np.asarray(x))
+    q = x.shape[0]
+    pad = (-q) % mesh.size("data")
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    return local_chunk(mesh, x, "data", 0).to(mesh.device), q
+
+
+def sharded_pairwise_distance(x, y, mesh: Mesh, mode: str = "cossim",
+                              block_size: Optional[int] = None) -> torch.Tensor:
+    """(Q, C) x (N, C) -> (Q, N) distance/similarity, query rows sharded
+    over ``data`` and gathered; candidates whole on every rank. With
+    ``block_size``, candidate columns go in blocks (per-rank memory (Q/d,
+    block) per product instead of (Q/d, N))."""
+    xs, q = _query_shard(mesh, x)
+    y = torch.as_tensor(np.asarray(y)).to(mesh.device)
+    if block_size is None:
+        d = pairwise_distance_matrix(xs, y, mode=mode)
+    else:
+        d = torch.cat([pairwise_distance_matrix(xs, y[b : b + block_size], mode=mode)
+                       for b in range(0, y.shape[0], block_size)], dim=1)
+    return all_gather(mesh, d, "data")[:q]
+
+
+def _top(scores: torch.Tensor, k: int):
+    """The k largest per row, equal scores in column order (the first
+    wins, as ``lax.top_k``): a stable descending sort."""
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def sharded_topk(x, y, mesh: Mesh, k: int, mode: str = "cossim", largest: Optional[bool] = None,
+                 block_size: Optional[int] = None):
+    """Top-k candidate scores and indices per query, (Q, k) each, query
+    rows sharded over ``data``; similarity modes take the largest,
+    distance modes the smallest. ``block_size``: candidate columns in
+    blocks with a running top-k merge, per-rank memory (Q/d, block) instead
+    of (Q/d, N). Ties keep the earlier column, blocked or not: the running
+    carry (earlier columns) goes before each new block and the merge sort
+    is stable."""
+    if largest is None:
+        largest = mode.endswith("sim")
+    xs, q = _query_shard(mesh, x)
+    y = torch.as_tensor(np.asarray(y)).to(mesh.device)
+    N = y.shape[0]
+    k = min(k, N)
+    sign = 1.0 if largest else -1.0
+    if block_size is None or block_size >= N:
+        vals, idx = _top(sign * pairwise_distance_matrix(xs, y, mode=mode).float(), k)
+    else:
+        vals = torch.full((xs.shape[0], 0), float("-inf"), device=xs.device)
+        idx = torch.zeros((xs.shape[0], 0), dtype=torch.int64, device=xs.device)
+        for b in range(0, N, block_size):
+            s = sign * pairwise_distance_matrix(xs, y[b : b + block_size], mode=mode).float()
+            bv, bi = _top(s, min(k, s.shape[1]))
+            mv, sel = _top(torch.cat([vals, bv], dim=1), k)
+            idx = torch.take_along_dim(torch.cat([idx, bi + b], dim=1), sel, dim=1)
+            vals = mv
+    vals = all_gather(mesh, sign * vals, "data")[:q]
+    return vals, all_gather(mesh, idx, "data")[:q]
 
 
 def relevant_columns(
@@ -96,6 +166,7 @@ def streaming_relevant_ranks(
     resident="auto",
     resident_budget_mb: float = 512.0,
     device=None,
+    mesh: Optional[Mesh] = None,
 ):
     """Exact 1-based ranks of every relevant candidate per query, without
     the (Q, N) matrix.
@@ -119,10 +190,21 @@ def streaming_relevant_ranks(
     distances reduced with ``redux`` (``bpwr`` through K4). Use a distance
     mode ("cos").
 
+    ``mesh``: the queries shard over its ``data`` axis (contiguous slices,
+    the corpus whole on every rank's card) and the ranks are gathered; each
+    query's ranks are those of the single-device run, and every rank
+    returns all of them.
+
     Returns (ranks (Q, R) int32, 0 = empty slot, n_rel (Q,)) for
     :func:`map_from_ranks`.
     """
-    device = resolve_device(device)
+    if mesh is not None and mesh.active("data"):
+        return _mesh_relevant_ranks(
+            mesh, queries, corpus, query_labels, corpus_labels, query_idx, corpus_idx,
+            query_mask, dict(mode=mode, block_size=block_size, query_block=query_block,
+                             max_relevant=max_relevant, corpus_mask=corpus_mask, redux=redux,
+                             resident=resident, resident_budget_mb=resident_budget_mb))
+    device = resolve_device(device) if mesh is None else mesh.device
     corpus = np.asarray(corpus)
     queries = np.asarray(queries)
     sets = queries.ndim == 3
@@ -220,6 +302,32 @@ def streaming_relevant_ranks(
         slab_ranks = better.cpu().numpy()[: e0 - s0]
         ranks_out[s0:e0] = np.where(cols_slab[: e0 - s0] >= 0, slab_ranks + 1, 0)
     return ranks_out, n_rel
+
+
+def _mesh_relevant_ranks(mesh: Mesh, queries, corpus, query_labels, corpus_labels, query_idx,
+                         corpus_idx, query_mask, kw: dict):
+    """:func:`streaming_relevant_ranks` of this data rank's slice of the
+    queries, every slice's ranks gathered (each padded to the widest
+    relevant set)."""
+    queries = np.asarray(queries)
+    Q = queries.shape[0]
+    query_idx = np.arange(Q) if query_idx is None else np.asarray(query_idx)
+    _, n_rel = relevant_columns(query_labels, corpus_labels, query_idx, corpus_idx,
+                                kw["max_relevant"])
+    R = max(int(n_rel.max()) if Q else 0, 1)
+    per = -(-Q // mesh.size("data"))
+    lo = min(mesh.index("data") * per, Q)
+    hi = min(lo + per, Q)
+    ranks = np.zeros((per, R), np.int32)
+    if hi > lo:
+        part, _ = streaming_relevant_ranks(
+            queries[lo:hi], corpus, np.asarray(query_labels)[lo:hi], corpus_labels,
+            query_idx=query_idx[lo:hi], corpus_idx=corpus_idx,
+            query_mask=None if query_mask is None else np.asarray(query_mask)[lo:hi],
+            device=mesh.device, **kw)
+        ranks[: hi - lo, : part.shape[1]] = part
+    got = all_gather(mesh, torch.from_numpy(ranks).to(mesh.device), "data")
+    return got.cpu().numpy()[:Q], n_rel
 
 
 def map_from_ranks(ranks, n_rel, topk: Tuple[int, ...] = ()):

@@ -102,14 +102,17 @@ class TrainState:
     def device(self) -> torch.device:
         return self.trainable[0][1].device
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        grad_norm: Optional[torch.Tensor] = None) -> "TrainState":
         """One optimizer update from ``grads`` (name -> gradient, any float
         dtype); updates the masters, writes them back into the model and
-        increments ``step``. Runs on the device without a host sync."""
+        increments ``step``. Runs on the device without a host sync.
+        ``grad_norm``: the global norm clipping takes, where this rank's
+        gradients are shards of it (tensor parallelism); by default theirs."""
         tx = self.tx
         names = [n for n, _ in self.trainable]
         g = [grads[n].float() for n in names]
-        g_norm = torch.sqrt(sum((t * t).sum() for t in g))
+        g_norm = torch.sqrt(sum((t * t).sum() for t in g)) if grad_norm is None else grad_norm
         keep = g_norm < tx.max_norm
         g = [torch.where(keep, t, (t / g_norm) * tx.max_norm) for t in g]
 

@@ -24,6 +24,12 @@ step threads ``batch_stats`` through ``mutable``. The default call is
 ``ValueError``, as in JAX: a chunked step would change the batch
 statistics.
 
+On a mesh with a ``model`` axis (tensor parallelism, ``parallel/tp.py``)
+the model holds each rank's shard: the gradients are reduced over ``data``
+only, and clipping takes the global norm of the sharded gradients
+(``tp_grad_norm``). On a ``stage`` axis (``parallel/pp.py``) the pipelined
+encoder hands every rank the whole gradient.
+
 With a ``mesh`` (``parallel/mesh.py``, one process per card) the step takes
 the GLOBAL batch, as the JAX step takes the global sharded batch, and gives
 the single-device step's loss and update: each rank embeds its own rows
@@ -126,7 +132,7 @@ def loss_and_grads(
         loss, logdict = loss_fn(labels, ids, z, extra)
         (dz,) = torch.autograd.grad(loss, z)
     if sharded:
-        dz = dz[mesh.rank * B : (mesh.rank + 1) * B]
+        dz = dz[mesh.index("data") * B : (mesh.index("data") + 1) * B]
     # (3) re-run each chunk with autograd against its slice of dz
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     for i, c in enumerate(chunks):
@@ -157,9 +163,9 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
 
 def _split_evenly(batch: dict, mesh: Mesh) -> bool:
     """Whether the batch is split over a process group: every leaf with a
-    batch axis divides the world size."""
+    batch axis divides the data axis."""
     return mesh.distributed and all(
-        np.ndim(v) == 0 or np.shape(v)[0] % mesh.world_size == 0 for v in batch.values())
+        np.ndim(v) == 0 or np.shape(v)[0] % mesh.size("data") == 0 for v in batch.values())
 
 
 def make_train_step(
@@ -191,7 +197,12 @@ def make_train_step(
                 batch = {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
         loss, logdict, grads = loss_and_grads(state, batch, loss_fn, call, grad_accum,
                                               mesh=on_mesh)
-        state.apply_gradients(grads)
+        norm = None
+        if mesh is not None and mesh.size("model") > 1:
+            from wealy_tpu_torch.parallel.tp import tp_grad_norm
+
+            norm = tp_grad_norm(grads, mesh)
+        state.apply_gradients(grads, grad_norm=norm)
         logdict: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
                                             for k, v in logdict.items()}
         logdict["loss"] = loss
