@@ -49,7 +49,20 @@ and K4 alone at (222, 222, 18, 18), (1, 512, 18, 18), (16, 512, 18, 18),
 ``wealy_tpu_torch`` imported
 from DIR (default: this checkout), so that two checkouts can be compared
 within one call on one card by their ratios to the library calls. It
-prints one JSON line. Refuses to run without CUDA.
+prints one JSON line.
+
+    python3 chip_profile.py --memory [--package-root DIR]
+
+takes apart the host memory of chip_smoke.py phase 26: how the card's
+machine counts a process's resident set (a child's ``ru_maxrss`` after its
+parent touched 2 GiB; VmRSS after 4 GiB on the card, 1 GiB on the host and
+1 GiB pinned), then phase 26's corpus with its runs a (``evaluate
+--streaming``), d and e (the whisper and fusion train val hooks) for the
+``wealy_tpu_torch`` under DIR and under this checkout, all at once, each
+with its peak RSS and ``/proc/self/smaps`` by kind at exit above a process
+that only starts the card; and a lone run a of this checkout under cProfile
+(host time by function). It prints one JSON line. Refuses to run without
+CUDA.
 """
 
 from __future__ import annotations
@@ -107,8 +120,11 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time K1, K2, K3, K4 and K5a + K5b (against their library calls, "
                          "where there is one) in turns, and nothing else")
+    ap.add_argument("--memory", action="store_true",
+                    help="take phase 26's host memory apart, and nothing else")
     ap.add_argument("--package-root", default=None,
-                    help="checkout whose wealy_tpu_torch --kernels times")
+                    help="checkout whose wealy_tpu_torch --kernels times (--memory: beside "
+                         "this one)")
     ap.add_argument("--only", default="tiny,turbo,evaluate,ranking,finetune,serving",
                     help="comma-separated pipelines to trace, in this order")
     args = ap.parse_args()
@@ -118,6 +134,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.kernels:
         return time_kernels(args.package_root)
+    if args.memory:
+        return host_memory(args.package_root)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     # decode logits are f32 products, the heads' convolutions f32: no TF32
@@ -459,6 +477,92 @@ def profile_serving_in(tmp: str, dev, activities, out: Path, n: int = 10547, sma
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report(f"serving_exact_Q{Q}_x_{n}", prof, wall, out)
+
+
+def rss_mb() -> float:
+    """This process's resident set now (/proc/self/statm), MB."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def host_memory(package_root) -> int:
+    import cProfile
+    import io
+    import json
+    import pstats
+
+    import chip_smoke as cs
+
+    out = {}
+    child = ("import json, resource; print(json.dumps(resource.getrusage("
+             "resource.RUSAGE_SELF).ru_maxrss))")
+    big = np.ones(2**28, np.float64)  # 2 GiB touched
+    out["child ru_maxrss after a 2 GiB parent, MB"] = int(subprocess.run(
+        [sys.executable, "-c", child], capture_output=True, text=True).stdout) / 1024
+    del big
+    torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    before = rss_mb()
+    x = torch.ones(2**30, device="cuda")  # 4 GiB on the card
+    torch.cuda.synchronize()
+    out["VmRSS moved by 4 GiB on the card, MB"] = rss_mb() - before
+    del x
+    torch.cuda.empty_cache()
+    before = rss_mb()
+    h = np.ones(2**27, np.float64)
+    out["VmRSS moved by 1 GiB on the host, MB"] = rss_mb() - before
+    del h
+    before = rss_mb()
+    pinned = torch.empty(2**28, pin_memory=True).fill_(1.0)
+    out["VmRSS moved by 1 GiB pinned, MB"] = rss_mb() - before
+    del pinned
+    print(json.dumps(out), flush=True)
+    roots = {"change": os.path.dirname(os.path.abspath(__file__))}
+    if package_root is not None:
+        roots["parent"] = os.path.abspath(package_root)
+    with tempfile.TemporaryDirectory(prefix="wealy_memory_") as tmp:
+        lc, hs, _ = cs.write_scale_corpus(tmp, torch.device("cuda"))
+        confs = {"a": cs.scale_config(tmp, "whisper", lc, hs),
+                 "d": cs.scale_config(tmp, "whisper_train", lc, hs),
+                 "e": cs.scale_config(tmp, "whisper_clews_train", lc, hs, model="whisper-clews")}
+        argv = {"a": ["evaluate", "--config", confs["a"], "--split", "test", "--streaming"],
+                "d": ["train", "--config", confs["d"], "--max-steps", "1", "--fresh"],
+                "e": ["train", "--config", confs["e"], "--max-steps", "1", "--fresh"]}
+        procs = {}
+        for side, root in roots.items():
+            for key, args in [("baseline", None), *argv.items()]:
+                code = [cs.P26_BASELINE] if args is None else [cs.P26_RUN, json.dumps(args)]
+                log = open(os.path.join(tmp, f"{side}_{key}.out"), "w")
+                procs[side, key] = (subprocess.Popen(
+                    [sys.executable, "-c", *code], cwd=root, stdout=log,
+                    stderr=subprocess.DEVNULL, env=dict(os.environ, PYTHONPATH=root,
+                                                         OMP_NUM_THREADS="1")), log)
+        runs = {}
+        for (side, key), (p, log) in procs.items():
+            rc = p.wait(timeout=cs.P26_TIMEOUT_S)
+            log.close()
+            said = [json.loads(ln) for ln in open(log.name) if ln.startswith("{")]
+            runs[f"{side} {key}"] = {"rc": rc, "rss_mb": said[-1]["rss_mb"] if said else None,
+                                     "held": said[-1].get("held") if said else None}
+        for side in roots:
+            base = runs[f"{side} baseline"]["rss_mb"] or 0.0
+            for key in argv:
+                r = runs[f"{side} {key}"]
+                r["above_mb"] = None if r["rss_mb"] is None else r["rss_mb"] - base
+                print(f"[memory] {side} {key}: rc {r['rc']}, peak RSS {r['rss_mb']} MB, "
+                      f"{r['above_mb']} above the baseline, at exit {r['held']}", flush=True)
+        from wealy_tpu_torch.cli.main import main as cli_main
+
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.runcall(cli_main, argv["a"])
+        lone_s = time.perf_counter() - t0
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(25)
+        print(f"[memory] a alone under cProfile: {lone_s:.1f} s\n{text.getvalue()}", flush=True)
+    out.update(runs=runs, lone_a_s=lone_s)
+    print(json.dumps(out))
+    return 0 if all(r["rc"] == 0 for r in runs.values()) else 1
 
 
 PIPELINES = {"tiny": profile_tiny, "turbo": profile_turbo, "evaluate": profile_evaluate,

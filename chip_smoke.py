@@ -64,7 +64,13 @@ over phase 21's first 16 versions, the TP decode, encoder and sequence-
 parallel encoder, two TP fine-tune steps (K1, K2, K3, K5a, K5b at the shard
 shapes), the GPipe encoder, ring attention, a sharded chunk-set ranking and
 ``query --shard`` (K4), each against the one-process route, and
-``graft_entry.entry()`` card against CPU. Every kernel is
+``graft_entry.entry()`` card against CPU. Phase 26 streams a packed
+corpus of 10,548 versions at full width (``hs_last_seq`` (12, 1280), CLEWS
+(8, 2048)) through ``evaluate`` (``--streaming``, ``--chunk-sets``,
+auto-selected, whisper-clews) and the whisper and fusion train val hooks,
+each a process of its own whose peak resident set above a process that only
+starts the card must stay under 3000 MB, with the first 2,048 versions card
+against CPU and a ``save_pt`` export of them evaluated. Every kernel is
 timed beside its plain version, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call. Each main-path
@@ -757,6 +763,9 @@ def main() -> int:
         # 25. TP, SP, PP, the ring, the sharded ranking and serving at two ranks
         parallel_launches = parallel_phase(tmp, dev, smi)
         tally("25 parallel (2 ranks)", parallel_launches)
+    # 26. corpus-scale streaming: evaluate and the val hooks over 10,548 versions
+    with tempfile.TemporaryDirectory(prefix="wealy_scale_") as tmp:
+        tally("26 corpus-scale streaming", corpus_scale_phase(tmp, dev, smi))
     for name in ("log_mel", "flash_mha", "fused_mlp"):
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
@@ -3449,6 +3458,316 @@ def parallel_phase(tmp: str, dev, smi: str) -> dict:
         f"references {ref_s:.1f} s, ranks {ranks_s:.1f} s, phase "
         f"{time.perf_counter() - t_phase:.1f} s | {smi}")
     return launched
+
+# 26. corpus-scale streaming: SHS100K-TEST's 10,547 versions rounded up to
+# whole pairs, at the turbo hs_last_seq width and the full CLEWS width
+P26_CLIQUES = 5274
+P26_TRAIN_CLIQUES = 16
+P26_CHUNK = 250
+P26_SEQ, P26_WIDTH = 12, 1280  # hs_last_seq (T, C): one 250-frame window a song
+P26_CLEWS_SEQ, P26_CLEWS = 8, 2048  # hs_clews, its sequence cut from 116 to 8
+P26_SUBSET = 2048  # the versions held card against CPU
+P26_RSS_GATE_MB = 3000.0
+P26_TIMEOUT_S = 600
+# A process's peak resident set: VmHWM where /proc has it, else the largest
+# resident set that a thread reads from /proc/self/statm every 5 ms (the
+# card's machine has no VmHWM, and its ru_maxrss carries a parent's peak
+# across fork and exec).
+P26_PEAK = """
+import json, os, re, threading, time
+
+_PAGE = os.sysconf("SC_PAGE_SIZE")
+_peak = [0]
+
+
+def _sample():
+    while True:
+        with open("/proc/self/statm") as f:
+            _peak[0] = max(_peak[0], int(f.read().split()[1]) * _PAGE)
+        time.sleep(0.005)
+
+
+threading.Thread(target=_sample, daemon=True).start()
+
+
+def held():
+    # resident MB by kind of mapping (/proc/self/smaps): shared libraries,
+    # packs, anonymous memory (the heap included), the rest
+    out, kind = {"libs": 0.0, "packs": 0.0, "anon": 0.0, "other": 0.0}, None
+    if not os.path.exists("/proc/self/smaps"):
+        return {}
+    for line in open("/proc/self/smaps"):
+        head = line.split()
+        if "-" in head[0] and len(head) >= 5:
+            path = head[5] if len(head) > 5 else ""
+            kind = ("packs" if path.endswith(".bin") else "libs" if ".so" in path
+                    else "anon" if path in ("", "[heap]") else "other")
+        elif head[0] == "Rss:" and kind is not None:
+            out[kind] += int(head[1]) / 1024
+    return {k: round(v) for k, v in out.items()}
+
+
+def peak_rss():
+    with open("/proc/self/status") as f:
+        hwm = re.search(r"VmHWM:\\s+(\\d+) kB", f.read())
+    if hwm:
+        return {"rss_mb": int(hwm.group(1)) / 1024, "rss_by": "VmHWM", "held": held()}
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * _PAGE
+    return {"rss_mb": max(_peak[0], now) / 2**20, "rss_by": "VmRSS every 5 ms", "held": held()}
+"""
+# a run of `python -m wealy_tpu_torch.cli.main <argv>`; at exit it prints its
+# peak resident set and its kernels' launch counts
+P26_RUN = P26_PEAK + """
+import atexit, runpy, sys
+
+
+def report():
+    from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
+    from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
+    from wealy_tpu_torch.ops.flash_attention import flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq
+    from wealy_tpu_torch.ops.fused_mlp import fused_mlp
+    from wealy_tpu_torch.ops.layer_norm import fused_layer_norm
+    fns = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
+           "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
+           "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux, "layer_norm": fused_layer_norm}
+    print(json.dumps({**peak_rss(), "launches": {k: f.launches for k, f in fns.items()}}))
+
+
+atexit.register(report)
+sys.argv = ["wealy_tpu_torch.cli.main", *json.loads(sys.argv[1])]
+runpy.run_module("wealy_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+"""
+# the baseline: the port imported, the card started, one tensor on it
+P26_BASELINE = P26_PEAK + """
+import torch
+import wealy_tpu_torch.cli.main
+
+x = torch.ones(1, device="cuda")
+torch.cuda.synchronize()
+print(json.dumps({**peak_rss(), "launches": {}}))
+"""
+
+
+def write_scale_corpus(root: str, dev, n_cliques: int = P26_CLIQUES,
+                       train_cliques: int = P26_TRAIN_CLIQUES, seed: int = 26) -> tuple:
+    """Phase 26's corpus, the layout of tests/test_scale_eval.py: test and
+    val are the same ``n_cliques`` cliques of two versions, train
+    ``train_cliques`` distinct ones. Packs (fp16, drawn on the card in
+    blocks from ``seed``): ``hs_last_seq`` (12, 1280), ``hs_clews`` (8,
+    2048), ``hs_clews_avg`` (2048,), ``hs_clews_mask`` (8,) all valid; a
+    version is its clique's base vector plus 0.1 noise. Returns (CSV dir,
+    pack dir, {split: [(version id, clique)]})."""
+    from wealy_tpu_torch.data.packed_store import PackedStore
+
+    lc, hs = os.path.join(root, "lc"), os.path.join(root, "hs")
+    os.makedirs(lc)
+    big = [(1000 + 2 * c + k, f"test{c}") for c in range(n_cliques) for k in (0, 1)]
+    first = 1000 + 2 * n_cliques
+    small = [(first + 2 * c + k, f"train{c}") for c in range(train_cliques) for k in (0, 1)]
+    splits = {"test": big, "val": big, "train": small}
+    write_split_csvs(lc, splits)
+    versions = [str(v) for v, _ in big + small]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rows(shape, block: int = 512):
+        for c0 in range(0, len(versions) // 2, block):
+            n = min(block, len(versions) // 2 - c0)
+            base = torch.randn(n, *[1] * (len(shape) - 1), shape[-1], device=dev, generator=g)
+            x = base.repeat_interleave(2, 0) + 0.1 * torch.randn(2 * n, *shape, device=dev,
+                                                                 generator=g)
+            x = x.half().cpu().numpy()
+            yield from zip(versions[2 * c0 : 2 * (c0 + n)], x)
+
+    PackedStore.pack(hs, "hs_last_seq", rows((P26_SEQ, P26_WIDTH)), dataset_name="lyric-covers")
+    PackedStore.pack(hs, "hs_clews", rows((P26_CLEWS_SEQ, P26_CLEWS)), dataset_name="lyric-covers")
+    PackedStore.pack(hs, "hs_clews_avg", rows((P26_CLEWS,)), dataset_name="lyric-covers")
+    PackedStore.pack(hs, "hs_clews_mask",
+                     ((v, np.zeros(P26_CLEWS_SEQ, np.float16)) for v in versions),
+                     dataset_name="lyric-covers")
+    return lc, hs, splits
+
+
+def scale_config(root: str, name: str, lc: str, hs: str, model: str = "whisper",
+                 **train) -> str:
+    """A phase-26 config: chunk 250, zdim 512; ``train`` keys go to
+    ``train`` (loss clews, batch 8, lr 1e-3, one warm-up step, the val hook
+    at every step over groups of 256, its records in ``metrics_<name>.jsonl``)."""
+    cpath = write_config(os.path.join(root, f"{name}.json"), lc, hs, os.path.join(root, "cache"),
+                         chunk_size=P26_CHUNK, name=model)
+    conf = json.load(open(cpath))
+    conf["train"] = {"loss": "clews", "batch_size": 8, "lr": 1e-3, "warmup_steps": 1,
+                     "log_every": 0, "eval_every": 1, "val_group": 256,
+                     "metrics_jsonl": os.path.join(root, f"metrics_{name}.jsonl"), **train}
+    with open(cpath, "w") as f:
+        json.dump(conf, f)
+    return cpath
+
+
+def run_bounded(runs: dict, work: str) -> dict:
+    """Each ``(argv, env)`` of ``runs`` as ``python -m
+    wealy_tpu_torch.cli.main <argv>`` in a process of its own (on the card
+    unless ``argv`` asks for the CPU; ``env`` adds environment variables),
+    all started at once, under one deadline; the key "baseline" runs
+    :data:`P26_BASELINE` instead. Returns {key: {last JSON line, rss_mb,
+    rss_by, launches, s}}; a failed run fails the phase and gives {}."""
+    procs, ends = {}, {}
+    t0 = time.perf_counter()
+    for key, (argv, env) in runs.items():
+        code = [P26_BASELINE] if key == "baseline" else [P26_RUN, json.dumps(argv)]
+        logs = [open(os.path.join(work, f"run_{key}.{x}"), "w") for x in ("out", "err")]
+        procs[key] = (subprocess.Popen([sys.executable, "-c", *code], cwd=REPO, stdout=logs[0],
+                                       stderr=logs[1], env=dict(os.environ, PYTHONPATH=REPO,
+                                                                **env)), logs)
+    while len(ends) < len(procs) and time.perf_counter() - t0 < P26_TIMEOUT_S:
+        for key, (p, _) in procs.items():
+            if key not in ends and p.poll() is not None:
+                ends[key] = time.perf_counter() - t0
+        time.sleep(0.1)
+    results = {}
+    for key, (p, logs) in procs.items():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        for f in logs:
+            f.close()
+        said = open(os.path.join(work, f"run_{key}.out")).read().splitlines()
+        lines = [json.loads(ln) for ln in said if ln.startswith("{")]
+        ok = p.returncode == 0 and bool(lines) and "rss_mb" in lines[-1]
+        err = open(os.path.join(work, f"run_{key}.err")).read()[-3000:]
+        check(ok, f"phase 26 run {key} {runs[key][0][:1]} exit {p.returncode}: {err}")
+        results[key] = ({**(lines[-2] if len(lines) > 1 else {}), **lines[-1],
+                         "s": ends.get(key, math.nan)} if ok else {})
+    return results
+
+
+def corpus_scale_phase(tmp: str, dev, smi: str) -> dict:
+    """26. Corpus-scale streaming on the card at full width: a corpus of
+    5,274 cliques of two versions (10,548) and 16 train cliques, packed
+    (:func:`write_scale_corpus`). Six runs of the command line over it, each
+    a process of its own whose peak RSS is read at its exit, against a
+    process that only imports the port, starts the card and allocates one
+    tensor: a. ``evaluate --streaming --song-group 64`` (ProjectionHead,
+    zdim 512), b. the same with ``--chunk-sets`` (K4), c. ``evaluate`` with
+    no streaming flag (auto-selected), d. ``train --max-steps 1 --fresh``
+    with the big split as val (the whisper val hook), e. the same for
+    whisper-clews (the fusion val hook), f. ``evaluate --streaming`` for
+    whisper-clews; and on the first 2,048 versions a, b and f on the card
+    and on the CPU, and a on a ``save_pt`` export of them. Every process
+    starts at once (the host's cores are shared, so each run's seconds are
+    its wall among the others). Gates: every run exits 0 with MAP > 0.5
+    (val_MAP for d and e) and all its queries, RSS above the baseline under
+    3000 MB, a == c on MAP and MR1 within 1e-6, the subset's card runs equal
+    the CPU's within 1e-6, the export reads back equal through ``load_pt``
+    and ``EmbeddingDataset`` and evaluates to the pack's a. Returns the
+    launches of the runs on the card."""
+    from wealy_tpu_torch.data.dataset import EmbeddingDataset
+    from wealy_tpu_torch.data.embedding_store import EmbeddingStore, load_pt
+    from wealy_tpu_torch.data.packed_store import PackedStore
+    from wealy_tpu_torch.train.config import Config
+
+    t_phase = time.perf_counter()
+    lc, hs, splits = write_scale_corpus(tmp, dev)
+    corpus_s = time.perf_counter() - t_phase
+    n = len(splits["test"])
+    monolithic_gb = n * P26_CHUNK * P26_WIDTH * 4 / 1e9
+    single = scale_config(tmp, "whisper", lc, hs)
+    fusion = scale_config(tmp, "whisper_clews", lc, hs, model="whisper-clews")
+    single_d = scale_config(tmp, "whisper_train", lc, hs)
+    fusion_e = scale_config(tmp, "whisper_clews_train", lc, hs, model="whisper-clews")
+    # the first 2,048 versions, from the packs and from a save_pt export
+    lc_sub = os.path.join(tmp, "lc_subset")
+    os.makedirs(lc_sub)
+    sub = splits["test"][:P26_SUBSET]
+    write_split_csvs(lc_sub, {"test": sub, "val": sub[:4], "train": splits["train"]})
+    sub_single = scale_config(tmp, "whisper_subset", lc_sub, hs)
+    sub_fusion = scale_config(tmp, "whisper_clews_subset", lc_sub, hs, model="whisper-clews")
+    t_pt = time.perf_counter()
+    pack = PackedStore(hs, "hs_last_seq", dataset_name="lyric-covers")
+    hs_pt = os.path.join(tmp, "hs_pt")
+    store = EmbeddingStore(hs_pt, "lyric-covers")
+    for v, _ in sub:
+        store.save_pt(str(v), "hs_last_seq.pt", embeddings=pack.load(str(v)))
+    sub_pt = scale_config(tmp, "whisper_pt", lc_sub, hs_pt)
+    ds = EmbeddingDataset(Config.from_file(sub_pt), "test", seed=0)
+    same = all(np.array_equal(ds.load_embedding(str(v)), pack.load(str(v))) for v, _ in sub)
+    same = same and all(
+        np.array_equal(load_pt(os.path.join(hs_pt, str(v), "hs_last_seq.pt"))["embeddings"],
+                       pack.load(str(v))) for v, _ in sub[:16])
+    check(same, "phase 26: the save_pt export reads back other rows than the pack's")
+    pt_s = time.perf_counter() - t_pt
+
+    def evaluate(cpath, *flags):
+        return ["evaluate", "--config", cpath, "--split", "test", *flags, "--song-group", "64"]
+
+    card_env, cpu_env = {"OMP_NUM_THREADS": "1"}, {"OMP_NUM_THREADS": "2"}
+    runs = {
+        "baseline": ([], card_env),
+        "a": (evaluate(single, "--streaming"), card_env),
+        "b": (evaluate(single, "--streaming", "--chunk-sets"), card_env),
+        "c": (evaluate(single), card_env),
+        "d": (["train", "--config", single_d, "--max-steps", "1", "--fresh"], card_env),
+        "e": (["train", "--config", fusion_e, "--max-steps", "1", "--fresh"], card_env),
+        "f": (evaluate(fusion, "--streaming"), card_env),
+        "a2048": (evaluate(sub_single, "--streaming"), card_env),
+        "b2048": (evaluate(sub_single, "--streaming", "--chunk-sets"), card_env),
+        "f2048": (evaluate(sub_fusion, "--streaming"), card_env),
+        "a2048 .pt": (evaluate(sub_pt, "--streaming"), card_env),
+        "a2048 CPU": (evaluate(sub_single, "--streaming") + ["--device", "cpu"], cpu_env),
+        "b2048 CPU": (evaluate(sub_single, "--streaming", "--chunk-sets") + ["--device", "cpu"],
+                      cpu_env),
+        "f2048 CPU": (evaluate(sub_fusion, "--streaming") + ["--device", "cpu"], cpu_env),
+    }
+    t_runs = time.perf_counter()
+    res = run_bounded(runs, tmp)
+    runs_s = time.perf_counter() - t_runs
+    baseline = res["baseline"].get("rss_mb", math.nan)
+    for key, conf in (("d", single_d), ("e", fusion_e)):
+        path = json.load(open(conf))["train"]["metrics_jsonl"]
+        val = [r for r in map(json.loads, open(path)) if "val_MAP" in r] \
+            if os.path.exists(path) else []
+        check(len(val) == 1, f"phase 26 {key}: val records {val}")
+        if val:
+            res[key].update(MAP=val[0]["val_MAP"], MR1=val[0]["val_MR1"])
+    launched = {}
+    for key, r in res.items():
+        if key == "baseline":
+            continue
+        want_n = n if len(key) == 1 else P26_SUBSET
+        check(r.get("MAP", 0.0) > 0.5, f"phase 26 {key}: MAP {r.get('MAP')}")
+        check(key in "de" or r.get("n_queries") == want_n,
+              f"phase 26 {key}: n_queries {r.get('n_queries')}")
+        check(r.get("rss_mb", math.inf) - baseline < P26_RSS_GATE_MB,
+              f"phase 26 {key}: {r.get('rss_mb', math.inf) - baseline:.1f} MB above the baseline")
+        if "CPU" not in key:
+            for name, k in r.get("launches", {}).items():
+                launched[name] = launched.get(name, 0) + k
+
+    def differ(x: str, y: str, keys=("MAP", "MR1", "P@10")) -> float:
+        return max(abs(res[x].get(k, math.nan) - res[y].get(k, math.nan)) for k in keys)
+
+    check(differ("a", "c", ("MAP", "MR1")) <= 1e-6, f"phase 26: a {res['a']} and c {res['c']}")
+    worst = max(differ(f"{k}2048", f"{k}2048 CPU") for k in "abf")
+    check(worst <= 1e-6, f"phase 26: the subset's card and CPU runs differ by {worst}")
+    check(differ("a2048", "a2048 .pt") <= 1e-6, "phase 26: the save_pt export evaluates to "
+          f"{res['a2048 .pt']}, the pack to {res['a2048']}")
+    check(launched.get("bpwr_redux", 0) > 0, f"phase 26 launched K4 {launched}")
+    phase_s = time.perf_counter() - t_phase
+    runs_txt = "; ".join(
+        f"{k}. {r.get('s', math.nan):.1f} s MAP {r.get('MAP', math.nan):.6f} MR1 "
+        f"{r.get('MR1', math.nan):.4f} n_queries {r.get('n_queries')} peak RSS "
+        f"{r.get('rss_mb', math.nan):.1f} MB ({r.get('rss_mb', math.nan) - baseline:.1f} above; "
+        f"at exit {r.get('held')})" for k, r in res.items() if k != "baseline")
+    by = res["baseline"].get("rss_by")
+    say(f"[26 corpus-scale streaming] {n} versions (+{len(splits['train'])} train), corpus "
+        f"{corpus_s:.1f} s; monolithic whisper input ({n}, {P26_CHUNK}, {P26_WIDTH}) f32 "
+        f"{monolithic_gb:.2f} GB; save_pt export of {P26_SUBSET} read back equal ({pt_s:.1f} s) "
+        f"| {len(runs)} processes at once, {runs_s:.1f} s, peak RSS by {by}; baseline "
+        f"{baseline:.1f} MB (at exit {res['baseline'].get('held')}) | {runs_txt} | a == c | first {P26_SUBSET} card vs CPU a, b, f max "
+        f"|diff| {worst:.2g} | K4 launches {launched.get('bpwr_redux', 0)} | phase {phase_s:.1f} s"
+        f" | {smi}")
+    return launched
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:

@@ -189,7 +189,7 @@ def test_validate_data_cli_matches_jax(project, capsys):  # noqa: F811
     assert json.loads(capsys.readouterr().out) == want
 
 
-def test_evaluate_cli_refuses_what_is_not_ported(project, tmp_path, capsys):  # noqa: F811
+def test_evaluate_cli_test_mode_and_fusion_names_run(project, tmp_path, capsys):  # noqa: F811
     """What was refused before the CLEWS/fusion slice now runs as in JAX:
     ``--test-mode`` leaves the whisper head's evaluate as it is (JAX ignores
     it for a single-modal model), and a fusion name evaluates (its metrics

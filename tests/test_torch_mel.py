@@ -4,6 +4,7 @@ port's plain version and kernel wrapper (K1); and K1's tables: its FFT
 plan, run in torch, against the dense DFT basis, and its banded mel table
 against the filterbank."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -149,3 +150,32 @@ def test_mel_bands_reproduce_the_filterbank(n_mels):
     np.testing.assert_array_equal(dense, fb)
     assert band[:, 1].max() <= fused_mel.BAND_WIDTH
     assert fused_mel.fft_plan().shape == (1052,)  # the layout log_mel.cu asserts
+
+
+@pytest.mark.parametrize("shape,length,axis", [
+    ((5,), 8, -1), ((5,), 3, 0), ((2, 7), 7, -1), ((2, 7), 4, 1), ((6, 3), 9, 0),
+    ((2, 3, 4), 6, 1), ((2, 3, 4), 2, -2), ((1, tmel.N_SAMPLES - 1000), tmel.N_SAMPLES, -1),
+])
+def test_pad_or_trim_matches_jax(shape, length, axis):
+    """Zero pad or cut along any axis, as wealy_tpu.audio.mel.pad_or_trim;
+    an input of the right length comes back as it is."""
+    x = np.random.default_rng(len(shape) * 10 + length).normal(size=shape).astype(np.float32)
+    got = tmel.pad_or_trim(torch.from_numpy(x), length, axis)
+    want = np.asarray(jmel.pad_or_trim(jnp.asarray(x), length, axis))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    same = torch.from_numpy(x)
+    assert tmel.pad_or_trim(same, shape[axis], axis) is same
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_log_mel_dtype_matches_jax(clips, dtype):
+    """``dtype`` casts the f32 log-mel at the end, as in JAX."""
+    got = tmel.log_mel_spectrogram(torch.from_numpy(clips), 80, dtype=getattr(torch, dtype))
+    want = jmel.log_mel_spectrogram(jnp.asarray(clips), 80, dtype=getattr(jnp, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    f32 = tmel.log_mel_spectrogram(torch.from_numpy(clips), 80)
+    assert torch.equal(got, f32.to(getattr(torch, dtype)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=RTOL, atol=ATOL + (0 if dtype == "float32" else 1e-2))
+

@@ -97,6 +97,9 @@ def test_wav_decode_bit_equal_to_jax(jnative, kind, channels):
     want, jsr = jnative.decode_wav_bytes(data)
     assert sr == jsr == 22050 and got.dtype == np.float32 and got.shape == (3001,)
     np.testing.assert_array_equal(got, want)
+    raising, rsr = tnative.decode_wav_bytes(data)
+    assert rsr == jsr
+    np.testing.assert_array_equal(raising, want)
 
 
 @pytest.mark.parametrize("width", [1, 2, 4])
@@ -122,6 +125,8 @@ def test_malformed_wav_raises_in_both(jnative, data):
     fall through to the stdlib decoder as the JAX package's do."""
     with pytest.raises(ValueError):
         jnative.decode_wav_bytes(data)
+    with pytest.raises(ValueError):
+        tnative.decode_wav_bytes(data)
     assert tnative.try_decode_wav_bytes(data) is None
 
 
@@ -226,6 +231,7 @@ def test_mp3_decode_equal_to_jax(jnative, mp3_ok, tmp_path, sr, stereo):
     want, want_sr = jnative.decode_mp3_bytes(data)
     assert got_sr == want_sr == sr
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tnative.decode_mp3_bytes(data)[0], want)
     amp = float(np.abs(got).max())
     assert (0.25 < amp < 0.35) if stereo else (0.45 < amp < 0.55)
     path = tmp_path / "song.mp3"
@@ -238,6 +244,8 @@ def test_malformed_mp3_raises_and_load_audio_falls_through(jnative, mp3_ok, tmp_
     junk = b"ID3\x03\x00" + bytes(64) + b"not an mpeg stream" * 50
     with pytest.raises(ValueError):
         jnative.decode_mp3_bytes(junk)
+    with pytest.raises(ValueError):
+        tnative.decode_mp3_bytes(junk)
     assert tnative.try_decode_mp3_bytes(junk) is None
     path = tmp_path / "junk.mp3"
     path.write_bytes(junk)

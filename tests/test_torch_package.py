@@ -319,12 +319,17 @@ def test_hostmem_pins_on_glibc_and_is_a_noop_elsewhere(monkeypatch):
 
     from wealy_tpu_torch.utils import hostmem
 
+    monkeypatch.setattr(hostmem, "_pinned", False)
+    assert hostmem.malloc_thresholds_pinned() is False
     if platform.libc_ver()[0] == "glibc":
         assert hostmem.pin_malloc_thresholds() is True
+        assert hostmem.malloc_thresholds_pinned() is True
     assert isinstance(hostmem.trim_host_heap(), bool)
+    monkeypatch.setattr(hostmem, "_pinned", False)
     monkeypatch.setattr(hostmem, "_libc", None)
     monkeypatch.setattr(hostmem.platform, "libc_ver", lambda: ("musl", ""))
     assert hostmem.pin_malloc_thresholds() is False
+    assert hostmem.malloc_thresholds_pinned() is False
     assert hostmem.trim_host_heap() is False
 
 

@@ -138,3 +138,22 @@ def test_a_torn_pack_reads_as_absent(tmp_path):
     packed.bin_path.write_bytes(np.zeros((5, 4), np.float16).tobytes())
     assert not PackedStore(tmp_path, "k", dataset_name="d").available
     assert not JPacked(tmp_path, "k", dataset_name="d").available
+
+
+def test_converting_loads_read_the_file_and_map_nothing(tmp_path):
+    """A load in another dtype reads its rows from the file (equal to the
+    JAX reader's), so a stream over the pack keeps no memory map resident;
+    a load in the pack's own dtype is a view of the map."""
+    rng = np.random.default_rng(4)
+    arrays = [(f"v{i}", rng.normal(size=(int(rng.integers(1, 6)), 8)).astype(np.float16))
+              for i in range(12)] + [("flat", rng.normal(size=8).astype(np.float16))]
+    PackedStore.pack(tmp_path, "hs_last_seq", arrays)
+    store, jstore = PackedStore(tmp_path, "hs_last_seq"), JPacked(tmp_path, "hs_last_seq")
+    for key, arr in arrays:
+        got = store.load(key)
+        assert got.dtype == np.float32 and got.shape == arr.shape
+        np.testing.assert_array_equal(got, jstore.load(key))
+    assert store._mmap is None
+    view = store.load("v3", dtype=np.float16)
+    np.testing.assert_array_equal(view, dict(arrays)["v3"])
+    assert isinstance(view.base, np.memmap) or isinstance(view, np.memmap)

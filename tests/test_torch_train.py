@@ -220,7 +220,7 @@ def test_head_step_matches_jax_and_single_pass(jax_head_runs, grad_accum):
                        rtol=0, atol=2e-6)
 
 
-def test_step_arguments_the_port_does_not_take_yet():
+def test_step_refusals_are_the_jax_refusals_and_a_one_rank_mesh_is_plain():
     state = _port_head_state(ProjectionHead(C, zdim=16, hidden=(16,)).state_dict())
     with pytest.raises(ValueError, match="not divisible"):
         make_train_step(None, clews_loss, grad_accum=3)(state, dict(_head_batch()))
@@ -454,6 +454,37 @@ def test_fit_matches_jax_trajectory():
                                [h["loss"] for h in jw.history], rtol=1e-4)
 
 
+@pytest.mark.parametrize("epochs,max_steps", [(1, 1000), (2, 1000), (2, 5)])
+def test_fit_epochs_stop_where_jax_stops(epochs, max_steps):
+    """``fit(epochs=N)`` stops after N whole epochs (4 batches each here)
+    unless ``max_steps`` comes first, at the JAX loop's step and with its
+    losses; ``prefetch_depth`` changes no value."""
+    _, jmd = _toy_mds()
+    jsam = JCliqueSampler(jmd, "train", _det_loader, n_per_class=2, seed=3)
+    jmodel = JProjectionHead(zdim=8, hidden=(16,))
+    jstate = jcreate_train_state(jmodel, (jnp.zeros((4, 12, 16)), jnp.ones((4, 12), bool)),
+                                 tx=jmake_optimizer(lr=3e-3, warmup_steps=2, max_steps=50))
+    jstate, jw = jfit(jstate, jmake_train_step(jmodel, jclews_loss), jsam, batch_size=4,
+                      chunk_size=12, data_seed=3, max_steps=max_steps, epochs=epochs,
+                      prefetch_depth=1, writer=JMetricsWriter(log_every=0))
+    steps = []
+    for depth in (1, 3):
+        head = ProjectionHead(16, zdim=8, hidden=(16,))
+        head.load_state_dict(head_state_dict_from_jax_params(_np(jcreate_train_state(
+            jmodel, (jnp.zeros((4, 12, 16)), jnp.ones((4, 12), bool))).params)))
+        state = create_train_state(head, make_optimizer(lr=3e-3, warmup_steps=2, max_steps=50),
+                                   init=False)
+        md, _ = _toy_mds()
+        sampler = CliqueSampler(md, "train", _det_loader, n_per_class=2, seed=3)
+        state, w = fit(state, make_train_step(None, clews_loss), sampler, batch_size=4,
+                       chunk_size=12, data_seed=3, max_steps=max_steps, epochs=epochs,
+                       prefetch_depth=depth, writer=MetricsWriter(log_every=0))
+        steps.append(int(state.step))
+        np.testing.assert_allclose([h["loss"] for h in w.history],
+                                   [h["loss"] for h in jw.history], rtol=1e-4)
+    assert steps == [int(jstate.step)] * 2 == [min(4 * epochs, max_steps)] * 2
+
+
 def test_seeded_resume_matches_uninterrupted(tmp_path):
     _, full = _toy_fit(tmp_path, 12)
     ck = CheckpointManager(tmp_path / "ck")
@@ -608,7 +639,7 @@ def test_train_cli_then_evaluate_reads_its_head(project, capsys):  # noqa: F811
 
 
 @pytest.mark.parametrize("name", ["wealy-clews", "multimodal-concatenation"])
-def test_train_cli_fusion_models_wait_for_their_slice(project, name, capsys):  # noqa: F811
+def test_train_cli_fusion_models_train_and_checkpoint(project, name, capsys):  # noqa: F811
     """The fusion names train through the CLI now (the slice is ported): the
     configured max_steps, a finite loss and a checkpoint
     (tests/test_torch_fusion_cli.py holds them against JAX)."""

@@ -17,6 +17,10 @@ request they raise, never falling back.
 
 import torch
 
+from wealy_tpu_torch._lazy import lazy_getattr
+
+__version__ = "0.1.0"
+
 NO_CARD = (
     "no CUDA device: the port runs on the card; pass --device cpu (device='cpu') "
     "to run on the CPU"
@@ -35,3 +39,9 @@ def resolve_device(device=None) -> torch.device:
 def default_device() -> torch.device:
     """The card; raises ``RuntimeError`` when there is none."""
     return resolve_device(None)
+
+
+# the config class at the top level, as ``wealy_tpu.Config``; loaded on first
+# access, so that importing the package imports no training code
+_LAZY = {"wealy_tpu_torch.train.config": ("Config",)}
+__getattr__ = lazy_getattr(__name__, _LAZY)

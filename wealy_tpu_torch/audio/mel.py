@@ -124,9 +124,24 @@ def finish_log_mel(log_spec: torch.Tensor) -> torch.Tensor:
     return (torch.maximum(log_spec, mx - 8.0) + 4.0) / 4.0
 
 
-def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES, axis: int = -1) -> torch.Tensor:
+    """Zero-pad or cut ``axis`` to exactly ``length`` samples (``audio``
+    itself when it already has that length)."""
+    axis = axis % audio.ndim
+    size = audio.shape[axis]
+    if size == length:
+        return audio
+    if size > length:
+        return audio.narrow(axis, 0, length)
+    pad = [0, 0] * (audio.ndim - 1 - axis) + [0, length - size]
+    return F.pad(audio, pad)
+
+
+def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Whisper log-mel: (B, N_SAMPLES) or (N_SAMPLES,) f32 waveform ->
-    (B, n_mels, N_FRAMES) f32 (or (n_mels, N_FRAMES))."""
+    (B, n_mels, N_FRAMES) (or (n_mels, N_FRAMES)), computed in f32 and
+    returned in ``dtype``."""
     squeeze = audio.ndim == 1
     if squeeze:
         audio = audio[None]
@@ -140,5 +155,5 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     im = frames @ wsin
     mel = (re * re + im * im) @ melw  # (B, 3000, n_mels)
     log_spec = torch.log10(torch.clamp_min(mel, 1e-10)).transpose(1, 2)
-    out = finish_log_mel(log_spec)
+    out = finish_log_mel(log_spec).to(dtype)
     return out[0] if squeeze else out

@@ -93,8 +93,21 @@ import numpy as np
 import torch
 
 from wealy_tpu_torch import resolve_device
+from wealy_tpu_torch.utils.hostmem import trim_host_heap
 
 AUTO_STREAM_THRESHOLD = 2000
+
+
+TRIM_EVERY = 32
+
+
+def _trim_heap(group: int) -> None:
+    """After every ``TRIM_EVERY``-th song group of a streaming loop, release
+    the free glibc heap (``utils/hostmem.py``: the loops' multi-MB transients
+    interleaved with small long-lived rows leave heap that is never
+    returned). Frees memory only; no value changes."""
+    if group % TRIM_EVERY == TRIM_EVERY - 1:
+        trim_host_heap()
 
 
 def _load_config(path: str):
@@ -426,14 +439,11 @@ def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 2
 
     versions = list(ds.sampler.versions)
     L = config.data.chunk_size
-    all_sets, all_masks, labels, ids = [], [], [], []
-    for g0 in range(0, len(versions), max(1, song_group)):
-        group = versions[g0 : g0 + max(1, song_group)]
-        items = [
-            (ds.sampler.labels[ds.sampler.clique_of[v]],
-             [(int(ds.metadata.info[v]["id"]), ds.load_embedding(v))])
-            for v in group
-        ]
+    G = max(1, song_group)
+
+    def head(items):
+        # the group's collated input dies with this call, before the next
+        # group is collated
         if config.data.use_avg_pooling:
             # time collapses to one vector per song before the head: a
             # length-1 sequence, one z per song (a 1-chunk set)
@@ -441,13 +451,20 @@ def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 2
             x = ab.embeddings.reshape(len(items), 1, -1)
             z = slabbed_apply(model, x, np.ones(x.shape[:2], bool), slab_size=encode_slab,
                               device=device)
-            sets, set_mask, bidx = z[:, None, :], ab.masks.reshape(len(items), 1), range(len(items))
-        else:
-            batch = collate_overlapping(items, chunk_size=L,
-                                        overlap=config.data.overlap_percentage)
-            z = slabbed_apply(model, batch.embeddings, batch.masks, slab_size=encode_slab,
-                              device=device)
-            sets, set_mask, bidx, _ = regroup_chunks(z, batch.chunk_info, batch.chunk_valid)
+            return z[:, None, :], ab.masks.reshape(len(items), 1), range(len(items))
+        batch = collate_overlapping(items, chunk_size=L, overlap=config.data.overlap_percentage)
+        z = slabbed_apply(model, batch.embeddings, batch.masks, slab_size=encode_slab,
+                          device=device)
+        return regroup_chunks(z, batch.chunk_info, batch.chunk_valid)[:3]
+
+    all_sets, all_masks, labels, ids = [], [], [], []
+    for g0 in range(0, len(versions), G):
+        items = [
+            (ds.sampler.labels[ds.sampler.clique_of[v]],
+             [(int(ds.metadata.info[v]["id"]), ds.load_embedding(v))])
+            for v in versions[g0 : g0 + G]
+        ]
+        sets, set_mask, bidx = head(items)
         labels.extend(items[i][0] for i in bidx)
         ids.extend(items[i][1][0][0] for i in bidx)
         if pooled:
@@ -456,6 +473,7 @@ def embed_split(config, ds, model, *, song_group: int = 64, encode_slab: int = 2
         else:
             all_sets.append(sets)
             all_masks.append(set_mask)
+        _trim_heap(g0 // G)
     return all_sets, all_masks, np.asarray(labels), np.asarray(ids)
 
 
@@ -473,25 +491,30 @@ def make_val_eval_fn(config, model, val_ds, val_group: int = 256, device=None):
     val_group = max(1, min(val_group, len(v_versions)))
     device = resolve_device(device)
 
+    def embed_group(group):
+        """(z, labels, ids) of one group; its collated input dies with the call."""
+        items = [
+            (val_ds.sampler.labels[val_ds.sampler.clique_of[v]],
+             [(int(val_ds.metadata.info[v]["id"]), val_ds.load_embedding(v))])
+            for v in group
+        ]
+        keep = len(items)
+        items = items + [items[0]] * (val_group - keep)
+        vb = collate_fixed_length(items, chunk_size=config.data.chunk_size,
+                                  use_random_chunks=False)
+        labels, ids, emb, mask = vb.flatten_versions()
+        with torch.no_grad():
+            z = model(torch.from_numpy(emb).to(device).float(), torch.from_numpy(mask).to(device))
+        return z.cpu().numpy()[:keep], labels[:keep], ids[:keep]
+
     def eval_fn(state):
         zs, lbls, vids = [], [], []
         for g0 in range(0, len(v_versions), val_group):
-            items = [
-                (val_ds.sampler.labels[val_ds.sampler.clique_of[v]],
-                 [(int(val_ds.metadata.info[v]["id"]), val_ds.load_embedding(v))])
-                for v in v_versions[g0 : g0 + val_group]
-            ]
-            keep = len(items)
-            items = items + [items[0]] * (val_group - keep)
-            vb = collate_fixed_length(items, chunk_size=config.data.chunk_size,
-                                      use_random_chunks=False)
-            labels, ids, emb, mask = vb.flatten_versions()
-            with torch.no_grad():
-                z = model(torch.from_numpy(emb).to(device).float(),
-                          torch.from_numpy(mask).to(device))
-            zs.append(z.cpu().numpy()[:keep])
-            lbls.append(labels[:keep])
-            vids.append(ids[:keep])
+            z, labels, ids = embed_group(v_versions[g0 : g0 + val_group])
+            zs.append(z)
+            lbls.append(labels)
+            vids.append(ids)
+            _trim_heap(g0 // val_group)
         z = np.concatenate(zs, axis=0)
         labels = np.concatenate(lbls)
         ids = np.concatenate(vids)
@@ -518,6 +541,29 @@ def _mm_embed(model, model_call, flat: dict, device) -> np.ndarray:
         return model_call(model, feed).float().cpu().numpy()
 
 
+def _mm_embed_group(ds, collate, model, model_call, start: int, stop: int, device):
+    """(z, labels, ids) of items ``start:stop`` of a multimodal dataset; the
+    group's collated batch dies with the call, before the next is built."""
+    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
+
+    flat = flatten_multimodal_batch(collate([ds[i] for i in range(start, stop)]))
+    return _mm_embed(model, model_call, flat, device), flat["labels"], flat["ids"]
+
+
+def _mm_embed_all(ds, collate, model, model_call, group: int, device):
+    """(z, labels, ids) of every item of a multimodal dataset, ``group``
+    items collated and embedded at a time."""
+    zs, labels, ids = [], [], []
+    for g0 in range(0, len(ds), group):
+        z, lbl, vid = _mm_embed_group(ds, collate, model, model_call, g0,
+                                      min(g0 + group, len(ds)), device)
+        zs.append(z)
+        labels.append(lbl)
+        ids.append(vid)
+        _trim_heap(g0 // group)
+    return np.concatenate(zs), np.concatenate(labels), np.concatenate(ids)
+
+
 def _mm_songs(config, split: str, sig: str, args, device):
     """The split's multimodal dataset (one version per item) and the fusion
     model of ``config`` at the widths of its first item, its weights from
@@ -540,21 +586,13 @@ def make_val_eval_fn_mm(config, model, model_call, val_ds, sig: str, val_group: 
     ranks streamed (``streaming_relevant_ranks``)."""
     from wealy_tpu_torch.cli.serve import _mm_collate_fn
     from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
-    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
 
     collate = _mm_collate_fn(config, sig)
-    n = len(val_ds)
-    G = max(1, min(val_group, n))
+    G = max(1, min(val_group, len(val_ds)))
     device = resolve_device(device)
 
     def eval_fn(state):
-        zs, labels, ids = [], [], []
-        for g0 in range(0, n, G):
-            flat = flatten_multimodal_batch(collate([val_ds[i] for i in range(g0, min(g0 + G, n))]))
-            zs.append(_mm_embed(model, model_call, flat, device))
-            labels.append(flat["labels"])
-            ids.append(flat["ids"])
-        z, labels, ids = np.concatenate(zs), np.concatenate(labels), np.concatenate(ids)
+        z, labels, ids = _mm_embed_all(val_ds, collate, model, model_call, G, device)
         ranks, n_rel = streaming_relevant_ranks(z, z, labels, labels, mode="cos", query_idx=ids,
                                                 corpus_idx=ids, device=device)
         m = map_from_ranks(ranks, n_rel)
@@ -763,20 +801,12 @@ def _evaluate_multimodal(args, config, sig: str, device) -> dict:
     from wealy_tpu_torch.cli.serve import _mm_collate_fn
     from wealy_tpu_torch.eval.wealy import evaluate_song_embeddings
     from wealy_tpu_torch.parallel.similarity import map_from_ranks, streaming_relevant_ranks
-    from wealy_tpu_torch.train.multimodal import flatten_multimodal_batch
 
     ds, model, model_call = _mm_songs(config, args.split, sig, args, device)
     _auto_streaming(args, len(ds), exact_chunk_sets=False)
     collate = _mm_collate_fn(config, sig)
-    n = len(ds)
-    G = max(1, min(args.song_group, n))
-    zs, labels, ids = [], [], []
-    for g0 in range(0, n, G):
-        flat = flatten_multimodal_batch(collate([ds[i] for i in range(g0, min(g0 + G, n))]))
-        zs.append(_mm_embed(model, model_call, flat, device))
-        labels.append(flat["labels"])
-        ids.append(flat["ids"])
-    z, labels, ids = np.concatenate(zs), np.concatenate(labels), np.concatenate(ids)
+    G = max(1, min(args.song_group, len(ds)))
+    z, labels, ids = _mm_embed_all(ds, collate, model, model_call, G, device)
     if args.streaming:
         ranks, n_rel = streaming_relevant_ranks(z, z, labels, labels, mode="cos", query_idx=ids,
                                                 corpus_idx=ids, device=device)
@@ -802,6 +832,21 @@ def _song_chunks(sig: str, mm: dict, L: int, stride: int):
     return chunks, np.ones((chunks.shape[0], L), bool)
 
 
+def _mm_embed_chunks(sig: str, songs: list, refs: list, model, model_call, device) -> np.ndarray:
+    """Fused embeddings of the test-mode chunks ``refs`` ([(song, chunk)])
+    of ``songs`` ([(chunks, valid, full_clews, clews_mask)]), each with its
+    song's CLEWS context; the stacked slab dies with the call."""
+    w = np.stack([songs[si][0][ci] for si, ci in refs])
+    feed = {"full_clews": np.stack([songs[si][2] for si, _ in refs]),
+            "clews_mask": np.stack([songs[si][3] for si, _ in refs])}
+    if sig == "wealy":
+        feed["wealy"] = w
+    else:
+        feed["whisper_seq"] = w
+        feed["whisper_mask"] = ~np.stack([songs[si][1][ci] for si, ci in refs])
+    return _mm_embed(model, model_call, feed, device)
+
+
 def _evaluate_mm_test_mode(args, config, sig: str, device) -> dict:
     """Fusion-model test mode: ALL chunks of every song (the precomputed
     WEALY chunks, or overlapping whisper windows), each embedded with the
@@ -825,23 +870,13 @@ def _evaluate_mm_test_mode(args, config, sig: str, device) -> dict:
             labels.append(label)
             ids.append(vid)
         refs = [(si, ci) for si, s in enumerate(songs) for ci in range(s[0].shape[0])]
-        zs = []
-        for s0 in range(0, len(refs), slab):
-            batch = refs[s0 : s0 + slab]
-            w = np.stack([songs[si][0][ci] for si, ci in batch])
-            feed = {"full_clews": np.stack([songs[si][2] for si, _ in batch]),
-                    "clews_mask": np.stack([songs[si][3] for si, _ in batch])}
-            if sig == "wealy":
-                feed["wealy"] = w
-            else:
-                feed["whisper_seq"] = w
-                feed["whisper_mask"] = ~np.stack([songs[si][1][ci] for si, ci in batch])
-            zs.append(_mm_embed(model, model_call, feed, device))
-        z = np.concatenate(zs)
+        z = np.concatenate([_mm_embed_chunks(sig, songs, refs[s0 : s0 + slab], model, model_call,
+                                             device) for s0 in range(0, len(refs), slab)])
         row = 0
         for chunks, *_ in songs:
             z_sets.append(z[row : row + chunks.shape[0]])
             row += chunks.shape[0]
+        _trim_heap(g0 // song_group)
     max_chunks = max(zc.shape[0] for zc in z_sets)
     sets = np.zeros((len(z_sets), max_chunks, z_sets[0].shape[1]), np.float32)
     mask = np.zeros((len(z_sets), max_chunks), bool)

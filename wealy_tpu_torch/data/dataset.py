@@ -23,7 +23,7 @@ from wealy_tpu_torch.data.filters import (
 from wealy_tpu_torch.data.ids import assign_deterministic_ids, global_clique_id_mapping
 from wealy_tpu_torch.data.metadata import SPLITS, Metadata, load_metadata
 from wealy_tpu_torch.data.packed_store import PackedStore
-from wealy_tpu_torch.data.paths import embedding_filename
+from wealy_tpu_torch.data.paths import embedding_filename, find_audio_path
 from wealy_tpu_torch.data.sampler import CliqueSampler
 from wealy_tpu_torch.train.config import Config
 
@@ -143,7 +143,8 @@ def build_clean_dataset(
 class EmbeddingDataset:
     """Dataset over precomputed embeddings, sampler-backed. ``limit_cliques``
     keeps the split's first N cliques (the reference's LIMIT_CLIQUES);
-    ``n_per_class`` overrides ``config.data.n_per_class``."""
+    ``n_per_class``, ``p_samesong`` and ``augment`` override the config's
+    ``data`` keys; ``emb_dtype`` is the dtype :meth:`load_embedding` serves."""
 
     def __init__(
         self,
@@ -151,6 +152,8 @@ class EmbeddingDataset:
         split: str = "train",
         *,
         n_per_class: Optional[int] = None,
+        p_samesong: Optional[float] = None,
+        augment: Optional[bool] = None,
         debug: bool = False,
         limit_cliques: Optional[int] = None,
         check_audio: bool = False,
@@ -158,11 +161,15 @@ class EmbeddingDataset:
         seed: int = 0,
         store: Optional[EmbeddingStore] = None,
         refresh_cache: bool = False,
+        emb_dtype=None,
     ):
         if split not in SPLITS:
             raise ValueError(f"unknown split {split!r}; expected one of {SPLITS}")
         self.config = config
         self.split = split
+        # the dtype load_embedding serves; None keeps fp16 disk -> fp32, and
+        # the store's own fp16 reads a packed store as zero-copy views
+        self.emb_dtype = None if emb_dtype is None else np.dtype(emb_dtype)
         self.store = store or (
             EmbeddingStore(config.path.hidden_states, config.data.dataset_name)
             if config.path.hidden_states else None
@@ -199,15 +206,17 @@ class EmbeddingDataset:
         self.sampler = CliqueSampler(
             self.metadata, split, self.load_embedding,
             n_per_class=n_per_class if n_per_class is not None else config.data.n_per_class,
-            p_samesong=config.data.p_samesong,
-            augment=config.data.augment,
+            p_samesong=p_samesong if p_samesong is not None else config.data.p_samesong,
+            augment=augment if augment is not None else config.data.augment,
             seed=seed,
         )
 
     def load_embedding(self, version_key: str) -> Optional[np.ndarray]:
-        """Main embedding array of a version, fp32 (packed store first)."""
+        """Main embedding array of a version (packed store first), fp32 or
+        the dataset's ``emb_dtype``."""
+        want = self.emb_dtype
         if self.packed is not None:
-            emb = self.packed.load(version_key)
+            emb = self.packed.load(version_key, dtype=want if want is not None else np.float32)
             if emb is not None:
                 return emb
         if self.store is None:
@@ -215,10 +224,28 @@ class EmbeddingDataset:
         data = self.store.load(version_key, self.filename)
         if data is None:
             return None
-        return data["embeddings"] if "embeddings" in data else next(iter(data.values()))
+        emb = data["embeddings"] if "embeddings" in data else next(iter(data.values()))
+        if want is not None and np.asarray(emb).dtype != want:
+            emb = np.asarray(emb, want)
+        return emb
+
+    def get_embedding_path(self, version_key: str) -> Optional[Path]:
+        """The version's embedding file on disk (the reference's
+        ``return_paths`` accessor), or None."""
+        return self.store.path(version_key, self.filename) if self.store else None
+
+    def get_audio_path(self, version_key: str) -> Optional[Path]:
+        """The version's audio file under ``path.data``, or None."""
+        if not self.config.path.data:
+            return None
+        return find_audio_path(self.config.data.dataset_name, self.config.path.data, version_key)
 
     def __len__(self) -> int:
         return len(self.sampler)
 
     def __getitem__(self, index: int):
         return self.sampler.sample_item(index)
+
+    def epoch(self, **kwargs):
+        """One epoch of batches from the sampler (``CliqueSampler.epoch``)."""
+        return self.sampler.epoch(**kwargs)

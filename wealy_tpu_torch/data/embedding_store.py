@@ -6,6 +6,7 @@ lyric-covers flat, discogs-vi nested) and, where the ``.npz`` is absent,
 reads the reference's torch ``.pt`` file of the same stem: a raw tensor
 becomes ``{"embeddings": array}``, a dict keeps its keys. A missing or
 corrupt file loads as None (missing work), as in the JAX package.
+:meth:`EmbeddingStore.save_pt` writes that ``.pt`` format back.
 """
 
 from __future__ import annotations
@@ -94,6 +95,33 @@ class EmbeddingStore:
             k: (v.astype(np.float16) if np.issubdtype(v.dtype, np.floating) else v)
             for k, v in arrays.items()
         })
+        tmp.replace(out)
+        return out
+
+    def save_pt(self, version_key: str, filename: str, **arrays) -> Path:
+        """Export in the reference's ``.pt`` format, which its torch datasets
+        read: fp16 floats, a raw tensor where the payload is one
+        ``embeddings`` array and a dict otherwise; strings and dicts (the
+        ``extraction_method`` and ``chunk_info`` of ``hs_wealy_concat.pt``)
+        pass through as they are (atomic rename)."""
+        d = self.version_dir(version_key)
+        d.mkdir(parents=True, exist_ok=True)
+        out = d / filename
+
+        def to_tensor(v):
+            if isinstance(v, (str, dict)):
+                return v
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.floating):
+                v = v.astype(np.float16)
+            return torch.from_numpy(v)
+
+        if set(arrays) == {"embeddings"}:
+            payload = to_tensor(arrays["embeddings"])
+        else:
+            payload = {k: to_tensor(v) for k, v in arrays.items()}
+        tmp = out.with_suffix(".tmp.pt")
+        torch.save(payload, tmp)
         tmp.replace(out)
         return out
 

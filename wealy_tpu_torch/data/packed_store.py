@@ -125,16 +125,25 @@ class PackedStore:
 
     def load(self, version_key: str, dtype=np.float32) -> Optional[np.ndarray]:
         """The array in its original shape (upcast to ``dtype``), or None
-        if the version is not packed."""
+        if the version is not packed. In the pack's own dtype it is a view
+        of the memory map (no copy); a converting load reads its rows from
+        the file instead, because every page of the map that a stream
+        touches stays resident in the process while the map lives, so a
+        pass over a split would hold the whole pack (once per reader)."""
         ent = self._index.get(version_key)
         if ent is None:
             return None
         off, shape = ent
         n = int(np.prod(shape[:-1], dtype=np.int64))
-        flat = self._rows()[off : off + n]
         if np.dtype(dtype) == self._dtype:
-            return flat.reshape(shape)
-        return np.asarray(flat, dtype=dtype).reshape(shape)
+            return self._rows()[off : off + n].reshape(shape)
+        rows = np.empty((n, self._dim), self._dtype)
+        with open(self.bin_path, "rb") as f:
+            f.seek(off * self._dim * self._dtype.itemsize)
+            got = f.readinto(rows)
+        if got != rows.nbytes:
+            raise OSError(f"{self.bin_path}: short read of {version_key!r} ({got} bytes)")
+        return rows.astype(dtype).reshape(shape)
 
     @classmethod
     def pack(cls, root: str | Path, kind: str, arrays: Iterable[tuple], dtype=np.float16,

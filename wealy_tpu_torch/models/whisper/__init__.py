@@ -2,6 +2,7 @@
 sampling, beam search, the long-form ladder) and embedding extraction
 (counterpart of ``wealy_tpu.models.whisper``)."""
 
+from wealy_tpu_torch.models.whisper.beam import beam_decode
 from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS, WhisperConfig
 from wealy_tpu_torch.models.whisper.convert import (
     load_openai_state_dict,
@@ -25,6 +26,7 @@ from wealy_tpu_torch.models.whisper.model import (
 )
 
 __all__ = [
+    "beam_decode",
     "MultiHeadAttention",
     "ResidualAttentionBlock",
     "WHISPER_CONFIGS",

@@ -165,6 +165,16 @@ def try_decode_wav_bytes(data: bytes) -> Optional[Tuple[np.ndarray, int]]:
     return None if out is None else (out, sr)
 
 
+def decode_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """WAV bytes -> (float32 mono waveform, sample_rate); raises
+    ``ValueError`` on malformed or unsupported input (the JAX binding's
+    contract; :func:`try_decode_wav_bytes` returns None instead)."""
+    out, sr = _wav(data)
+    if out is None:
+        raise ValueError(f"wav decode failed (code {sr})")
+    return out, sr
+
+
 def mp3_available() -> bool:
     """True when libmpg123 is loadable (the native mp3 decode path)."""
     lib = _ensure_built()
@@ -192,6 +202,18 @@ def try_decode_mp3_bytes(data: bytes) -> Optional[Tuple[np.ndarray, int]]:
     or None where libmpg123 is unavailable or the input is malformed."""
     out, sr = _mp3(data)
     return None if out is None else (out, sr)
+
+
+def decode_mp3_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """MP3 bytes -> (float32 mono waveform, sample_rate) through libmpg123;
+    raises ``RuntimeError`` where libmpg123 is unavailable and
+    ``ValueError`` on malformed input, as the JAX binding does."""
+    out, sr = _mp3(data)
+    if out is None and sr == 1:
+        raise RuntimeError("libmpg123 not available for mp3 decode")
+    if out is None:
+        raise ValueError(f"mp3_decode_alloc failed (code {sr})")
+    return out, sr
 
 
 def resample_native(x: np.ndarray, L: int, M: int, taps: np.ndarray) -> np.ndarray:

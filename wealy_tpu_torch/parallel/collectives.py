@@ -19,15 +19,15 @@ from typing import Callable
 from wealy_tpu_torch.parallel.mesh import Mesh, all_gather_rows, gather_with_local_grad
 
 
-def global_batch_loss(loss_fn: Callable, mesh: Mesh):
+def global_batch_loss(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
     """Wrap ``loss_fn(z_label, z_idx, z, extra) -> (loss, logdict)`` so that
-    it computes over the gathered global batch (the mesh's data axis): the
+    it computes over the batch gathered along the mesh's ``axis``: the
     wrapped function takes this rank's rows and returns the global loss
     (the same on every rank)."""
 
     @functools.wraps(loss_fn)
     def wrapped(z_label, z_idx, z, extra=None):
-        return loss_fn(all_gather_rows(mesh, z_label), all_gather_rows(mesh, z_idx),
-                       gather_with_local_grad(mesh, z), extra)
+        return loss_fn(all_gather_rows(mesh, z_label, axis), all_gather_rows(mesh, z_idx, axis),
+                       gather_with_local_grad(mesh, z, axis), extra)
 
     return wrapped

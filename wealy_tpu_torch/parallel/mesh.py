@@ -353,26 +353,26 @@ def collective(x: torch.Tensor, mesh: Mesh, axis: str, fwd: str, bwd: str,
 # --- the data-parallel train step ---------------------------------------------
 
 
-def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every data rank's ``x`` concatenated on dim 0 in rank order (no
+def all_gather_rows(mesh: Mesh, x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """Every ``axis`` rank's ``x`` concatenated on dim 0 in rank order (no
     autograd); bool tensors travel as uint8."""
-    if not mesh.active("data"):
+    if not mesh.active(axis):
         return x
     wire = x.to(torch.uint8) if x.dtype == torch.bool else x
-    out = all_gather(mesh, wire, "data")
+    out = all_gather(mesh, wire, axis)
     return out.bool() if x.dtype == torch.bool else out
 
 
-def gather_with_local_grad(mesh: Mesh, z: torch.Tensor) -> torch.Tensor:
-    """The global (B, ...) ``z`` from every data rank's rows, with this
+def gather_with_local_grad(mesh: Mesh, z: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """The global (B, ...) ``z`` from every ``axis`` rank's rows, with this
     rank's own rows the autograd input: the gradient reaches the local rows
     only, and :func:`all_reduce_sum` of the parameter gradients then gives
     the single-device gradient of the global batch once (not ``size``
     times, as an autograd all-gather on top of that reduction would)."""
-    if not mesh.active("data"):
+    if not mesh.active(axis):
         return z
-    parts = list(all_gather_rows(mesh, z.detach()).chunk(mesh.size("data")))
-    parts[mesh.index("data")] = z
+    parts = list(all_gather_rows(mesh, z.detach(), axis).chunk(mesh.size(axis)))
+    parts[mesh.index(axis)] = z
     return torch.cat(parts)
 
 

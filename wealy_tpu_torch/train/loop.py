@@ -94,23 +94,26 @@ def fit(
     batch_size: int = 32,
     chunk_size: int = 1000,
     max_steps: int = 1000,
+    epochs: Optional[int] = None,
     writer: Optional[MetricsWriter] = None,
     checkpoint_manager=None,
     checkpoint_every: int = 1000,
     eval_fn: Optional[Callable] = None,
     eval_every: int = 1000,
     mesh=None,
+    prefetch_depth: int = 2,
     data_seed: int = 0,
     start_epoch: int = 0,
     start_batch: int = 0,
     make_batch: Optional[Callable] = None,
 ):
-    """Train until ``max_steps``; returns (state, writer).
+    """Train until ``max_steps``, or until ``epochs`` whole epochs have run
+    when that comes first; returns (state, writer).
 
     Batches come from the sampler's seekable stream (``epoch_batches``
     seeded by ``data_seed``), collated (``collate_fixed_length`` with random
-    windows) and placed on the state's device by a background thread, two
-    ahead. ``eval_fn(state) -> dict`` runs every ``eval_every`` steps,
+    windows) and placed on the state's device by a background thread,
+    ``prefetch_depth`` ahead. ``eval_fn(state) -> dict`` runs every ``eval_every`` steps,
     written with a ``val_`` prefix. Checkpoints carry a ``{"epoch",
     "next_batch", "data_seed", "batch_size"}`` sidecar, and ``start_epoch``
     / ``start_batch`` resume the exact data order of the uninterrupted run.
@@ -142,10 +145,11 @@ def fit(
     step = int(state.step)
     epoch = int(start_epoch)
     first_start = int(start_batch)
+    epochs_run = 0
     done = False
     saved_at = None
     data_state = None
-    while not done:
+    while not done and (epochs is None or epochs_run < epochs):
         n_avail = sampler.n_batches(batch_size)
         if first_start >= n_avail > 0:  # resumed exactly at an epoch boundary
             epoch += 1
@@ -153,7 +157,7 @@ def fit(
             continue
         stream = sampler.epoch_batches(epoch, batch_size, first_start)
         n_batches = 0
-        for b, batch in enumerate(prefetch(stream, depth=2, transform=produce),
+        for b, batch in enumerate(prefetch(stream, depth=prefetch_depth, transform=produce),
                                   start=first_start):
             n_batches += 1
             with trace_span("train.step"):
@@ -177,6 +181,7 @@ def fit(
                 "train.batch_size or check dataset filters."
             )
         epoch += 1
+        epochs_run += 1
         first_start = 0
     if checkpoint_manager is not None and saved_at != step:
         checkpoint_manager.save_state(state, data_state=data_state)

@@ -23,6 +23,7 @@ M_TRIM_THRESHOLD = -1
 M_MMAP_THRESHOLD = -3
 
 _libc = None
+_pinned = False
 
 
 def _glibc():
@@ -38,11 +39,19 @@ def pin_malloc_thresholds(mmap_threshold: int = 128 * 1024, trim_threshold: int 
     ``mmap_threshold`` always go to mmap, and free heap above
     ``trim_threshold`` at the top is released eagerly. Idempotent; returns
     False off glibc."""
+    global _pinned
     libc = _glibc()
     if libc is None:
         return False
-    return bool(libc.mallopt(M_MMAP_THRESHOLD, int(mmap_threshold))) and bool(
+    ok = bool(libc.mallopt(M_MMAP_THRESHOLD, int(mmap_threshold))) and bool(
         libc.mallopt(M_TRIM_THRESHOLD, int(trim_threshold)))
+    _pinned = _pinned or ok
+    return ok
+
+
+def malloc_thresholds_pinned() -> bool:
+    """True once :func:`pin_malloc_thresholds` has succeeded in this process."""
+    return _pinned
 
 
 def trim_host_heap() -> bool:
