@@ -48,7 +48,15 @@ and K4 alone at (222, 222, 18, 18), (1, 512, 18, 18), (16, 512, 18, 18),
 (222, 222, 12, 12), (16, 512, 40, 18) and (64, 64, 40, 40), with
 ``wealy_tpu_torch`` imported
 from DIR (default: this checkout), so that two checkouts can be compared
-within one call on one card by their ratios to the library calls. It
+within one call on one card by their ratios to the library calls. Then K6
+at ``chip_smoke.py`` phase 16's four shapes, with cold inputs: this
+checkout's kernel against DIR's (both imported side by side) and
+``F.layer_norm`` on the same bytes, in turns, beside a persistent streaming
+copy and ``Tensor.copy_`` of the same bytes; at (64, 1500, 384) bf16 also
+the probe of the first K6 (one warp a row): as it was, with constant
+weights, and as a copy of the same grid and bytes (the probe builds into
+``--out``); then this
+checkout's block route at (16384, 4096) bf16 and (4096, 8192) f32. It
 prints one JSON line.
 
     python3 chip_profile.py --memory [--package-root DIR]
@@ -118,8 +126,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="profile_out", help="directory for the tables")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K1, K2, K3, K4 and K5a + K5b (against their library calls, "
-                         "where there is one) in turns, and nothing else")
+                    help="time K1-K6 (against their library calls, where there is one; K6 "
+                         "also against the parent's and the probe) in turns, and nothing else")
     ap.add_argument("--memory", action="store_true",
                     help="take phase 26's host memory apart, and nothing else")
     ap.add_argument("--package-root", default=None,
@@ -133,7 +141,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.kernels:
-        return time_kernels(args.package_root)
+        return time_kernels(args.package_root, Path(args.out))
     if args.memory:
         return host_memory(args.package_root)
     out = Path(args.out)
@@ -223,7 +231,7 @@ def profile_turbo(dev, activities, out: Path) -> None:
     report("turbo_extract_song_65s", prof, wall, out)
 
 
-def time_kernels(package_root) -> int:
+def time_kernels(package_root, probe_dir: Path) -> int:
     import inspect
     import json
 
@@ -326,9 +334,292 @@ def time_kernels(package_root) -> int:
         cv = torch.rand(B, s2, device=dev, generator=gen) > 0.2
         med = turns_ms({"kernel": lambda: br.bpwr_block_redux(d, qv, cv)}, ("kernel",), 5, iters)
         rows.append({"kernel": "K4", "shape": [Q, B, s1, s2], "ms": med["kernel"]})
+    del d, flat
+    torch.cuda.empty_cache()
+    rows += time_layer_norm(package_root, probe_dir)
     print(json.dumps({"package": os.path.abspath(fa.__file__), "card": smi, "rows": rows}),
           flush=True)
     return 0
+
+
+# The probe of K6 at (64, 1500, 384) bf16: the first K6 (one warp a row, 8
+# rows a block, lane l taking 16-byte accesses l, l + 32, ..., scale and bias
+# read per element per row) as it was, with constant weights (scale 1, bias
+# 0: no weight loads), and as a copy of the same grid and bytes (no
+# arithmetic); and a persistent grid-stride copy with streaming hints, four
+# 16-byte accesses in flight a thread: the stream rate the card reaches
+PROBE_CU = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define API extern "C" __attribute__((visibility("default")))
+
+namespace {
+
+__device__ inline float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline void load8(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(h[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+__device__ inline void store8(__nv_bfloat16* p, const float* f) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// MODE 0: copy; 1: the first K6; 2: the first K6 with scale 1 and bias 0
+template <int MODE, int VPL>
+__global__ void __launch_bounds__(256)
+    old_rows(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+             const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, long long rows,
+             int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int n_access = D / 8;
+  const __nv_bfloat16* xr = x + row * D;
+  __nv_bfloat16* yr = out + row * D;
+  if (MODE == 0) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int a = lane + i * 32;
+      if (a < n_access) {
+        *reinterpret_cast<uint4*>(yr + a * 8) = *reinterpret_cast<const uint4*>(xr + a * 8);
+      }
+    }
+    return;
+  }
+  float v[VPL][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int a = lane + i * 32;
+    if (a < n_access) {
+      load8(xr + a * 8, v[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[i][e];
+    }
+  }
+  const float mu = warp_sum(sum) / static_cast<float>(D);
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (lane + i * 32 < n_access) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float c = v[i][e] - mu;
+        sq += c * c;
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int a = lane + i * 32;
+    if (a < n_access) {
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = a * 8 + e;
+        y[e] = MODE == 2 ? (v[i][e] - mu) * rstd
+                         : (v[i][e] - mu) * rstd * __ldg(scale + j) + __ldg(bias + j);
+      }
+      store8(yr + a * 8, y);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256) stream_copy(const uint4* __restrict__ x,
+                                                   uint4* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + 3 * stride < n; i += 4 * stride) {
+    uint4 u[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u[k] = __ldcs(x + i + k * stride);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) __stcs(out + i + k * stride, u[k]);
+  }
+  for (; i < n; i += stride) __stcs(out + i, __ldcs(x + i));
+}
+
+template <int MODE>
+cudaError_t launch(int vpl, const void* x, const void* s, const void* b, void* out,
+                   long long rows, int D, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((rows + 7) / 8);
+  const auto* xt = static_cast<const __nv_bfloat16*>(x);
+  const auto* sf = static_cast<const float*>(s);
+  const auto* bf = static_cast<const float*>(b);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  switch (vpl) {
+    case 1: old_rows<MODE, 1><<<blocks, 256, 0, st>>>(xt, sf, bf, o, rows, D, 1e-5f); break;
+    case 2: old_rows<MODE, 2><<<blocks, 256, 0, st>>>(xt, sf, bf, o, rows, D, 1e-5f); break;
+    case 4: old_rows<MODE, 4><<<blocks, 256, 0, st>>>(xt, sf, bf, o, rows, D, 1e-5f); break;
+    case 8: old_rows<MODE, 8><<<blocks, 256, 0, st>>>(xt, sf, bf, o, rows, D, 1e-5f); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 (rows, D), D a multiple of 8 up to 2048, 16-byte aligned; mode as MODE
+API int k6_probe_rows(const void* x, const void* scale, const void* bias, void* out,
+                      long long rows, int D, int mode, void* stream) {
+  const int vpl = (D / 8 + 31) / 32 <= 1 ? 1 : (D / 8 + 31) / 32 <= 2 ? 2
+                  : (D / 8 + 31) / 32 <= 4 ? 4 : 8;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 0) return launch<0>(vpl, x, scale, bias, out, rows, D, st);
+  if (mode == 1) return launch<1>(vpl, x, scale, bias, out, rows, D, st);
+  return launch<2>(vpl, x, scale, bias, out, rows, D, st);
+}
+
+// n16 16-byte words, 16-byte aligned
+API int k6_probe_stream(const void* x, void* out, long long n16, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_copy, 256, 0);
+  stream_copy<<<sms * (per_sm > 0 ? per_sm : 1), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), n16);
+  return cudaGetLastError();
+}
+"""
+
+
+def build_probe(out: Path):
+    """PROBE_CU compiled for sm_90a into ``out`` and loaded (ctypes)."""
+    import ctypes
+    import shutil
+
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "k6_probe.cu", out / "libk6_probe.so"
+    src.write_text(PROBE_CU)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"K6 probe: nvcc failed\n{proc.stderr[-3000:]}")
+    regs = [ln.split("info    : ")[-1] for ln in proc.stderr.splitlines() if "registers" in ln]
+    print(f"[K6 probe] ptxas: {' | '.join(regs)}", flush=True)
+    probe = ctypes.CDLL(str(lib))
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    probe.k6_probe_rows.argtypes = [P, P, P, P, L, I, I, P]
+    probe.k6_probe_stream.argtypes = [P, P, L, P]
+    return probe
+
+
+def import_layer_norm(root: str):
+    """``wealy_tpu_torch.ops.layer_norm`` of the checkout at ``root``, imported
+    beside whatever ``wealy_tpu_torch`` this process already holds: each
+    module keeps its own ``_build``, so two checkouts' K6 run side by side."""
+    import importlib
+
+    def ours():
+        return [k for k in sys.modules if k == "wealy_tpu_torch" or k.startswith("wealy_tpu_torch.")]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, root)
+    importlib.invalidate_caches()
+    try:
+        return importlib.import_module("wealy_tpu_torch.ops.layer_norm")
+    finally:
+        sys.path.remove(root)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def time_layer_norm(package_root, probe_dir: Path) -> list:
+    """K6 of this checkout ("change") against the one under ``package_root``
+    ("parent") and ``F.layer_norm`` on the same bytes, in turns (parent,
+    change, library, change, parent; five rounds, medians, queued behind a
+    device sleep), with cold inputs, at phase 16's four shapes, beside the
+    probe's streaming copy and ``Tensor.copy_`` of the same bytes; at the
+    headline shape also PROBE_CU's rows of the first K6."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+
+    change = import_layer_norm(os.path.dirname(os.path.abspath(__file__)))
+    parent = import_layer_norm(os.path.abspath(package_root)) if package_root else None
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    refusal = cs.aten_mixed_layer_norm()
+    print(f"[K6] ATen's F.layer_norm {'refuses' if refusal else 'takes'} bf16 x with f32 scale "
+          f"and bias on the card{': ' + refusal if refusal else ''}", flush=True)
+    probe = build_probe(probe_dir)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+    # phase 16's shapes, then the block route at rows as wide as the JAX
+    # kernel's, beyond the parent's 2048 (the parent is not timed there)
+    wide = (((16384, 4096), torch.bfloat16), ((4096, 8192), torch.float32))
+    for shape, dtype in cs.K6_SHAPES + wide:
+        D = shape[-1]
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        scale = torch.randn(D, device=dev, generator=gen) + 1
+        bias = torch.randn(D, device=dev, generator=gen)
+        nxt, copies = cs.cold_inputs(x)
+        w = (scale, bias) if dtype == torch.float32 or not refusal else \
+            (scale.to(dtype), bias.to(dtype))
+        fns = {"change": lambda: change.fused_layer_norm(nxt(), scale, bias),
+               "library": lambda: F.layer_norm(nxt(), (D,), *w, 1e-5)}
+        order = ["change", "library"]
+        if parent is not None and (shape, dtype) not in wide:
+            fns["parent"] = lambda: parent.fused_layer_norm(nxt(), scale, bias)
+            order.insert(0, "parent")
+        y = torch.empty_like(x)
+
+        def stream_probe():
+            xi = nxt()
+            probe.k6_probe_stream(xi.data_ptr(), y.data_ptr(), xi.numel() * xi.element_size() // 16,
+                                  stream)
+
+        fns.update({"stream copy": stream_probe, "Tensor.copy_": lambda: y.copy_(nxt())})
+        order += ["stream copy", "Tensor.copy_"]
+        headline = (shape, dtype) == cs.K6_SHAPES[0]
+        if headline:
+            def rows_probe(mode):
+                def run():
+                    xi = nxt()
+                    probe.k6_probe_rows(xi.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                        y.data_ptr(), xi.numel() // D, D, mode, stream)
+                return run
+
+            fns.update({"copy, first K6's grid": rows_probe(0), "first K6": rows_probe(1),
+                        "first K6, constant weights": rows_probe(2)})
+            order += ["copy, first K6's grid", "first K6", "first K6, constant weights"]
+            rows_probe(1)()
+            want = change.fused_layer_norm(x, scale, bias)
+            probe_err = (y.float() - want.float()).abs().max().item()
+        med = cs.turns_ms(fns, order + order[::-1], 5, {name: 20 for name in fns})
+        bnd = cs.bound(2 * x.numel() * x.element_size() + 2 * D * 4, 8 * x.numel(), "f32")
+        row = {"kernel": "K6", "shape": list(shape), "dtype": str(dtype)[6:], "ms": med["change"],
+               "parent_ms": med.get("parent"), "library": "F.layer_norm, " + (
+                   "f32 weights" if dtype == torch.float32 or not refusal
+                   else "weights rounded to bf16"), "library_ms": med["library"],
+               "ratio": med["change"] / med["library"], "bound_ms": bnd[0],
+               "bound_share": bnd[0] / med["change"], "inputs": f"cold, {copies} copies"}
+        row["probe_ms"] = {k: v for k, v in med.items() if k not in ("change", "parent", "library")}
+        if headline:
+            row["probe_max_abs_against_change"] = probe_err
+        rows.append(row)
+        print(f"[K6] {row}", flush=True)
+        del x, y, fns, nxt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def profile_evaluate(dev, activities, out: Path) -> None:

@@ -21,7 +21,9 @@ whisper-tiny encoder+head step on the card against the CPU (phase 13), the
 large-v3-turbo encoder + ProjectionHead(512) fine-tuned at full width and
 depth (phase 14), and ``train`` then ``evaluate --checkpoint`` through the
 CLI on the synthetic project (phase 15). Then K6 (LayerNorm) against its
-plain version and LayerNormFused's gradients (phase 16), and serving: the
+plain version, timed on inputs beyond the L2 cache beside ``F.layer_norm``
+on the same bytes, and LayerNormFused's gradients and every route of a row
+1 to 8192 wide (phase 16), and serving: the
 ``index``/``query`` CLI on the phase-10 project, card against CPU and every
 engine mode (phase 17), an exact-scan engine over a 10,547-version index
 (SHS100K-TEST scale) with its latency, batched rate, rerank, int8 and the
@@ -86,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -109,6 +112,13 @@ LSE_RTOL, LSE_ATOL = 1e-4, 1e-4
 # an H100 SXM's published peaks (dense), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+L2_BYTES = 50e6  # an H100's L2 cache
+# K6's shapes in phase 16 (the headline first): the JAX docstring's encoder
+# activations, turbo width, a ragged row count, and f32
+K6_SHAPES = (((64, 1500, 384), torch.bfloat16), ((8, 1500, 1280), torch.bfloat16),
+             ((4507, 1280), torch.bfloat16), ((3, 70, 384), torch.float32))
 
 
 def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
@@ -177,6 +187,29 @@ def turns_ms(fns: dict, order, reps: int, iters: dict) -> dict:
         for name in order:
             times[name].append(queued_ms(fns[name], iters[name]))
     return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def cold_inputs(x: torch.Tensor, sets: float = 2.0):
+    """(next, n): a function that returns the next of ``n`` equal copies of
+    ``x`` in turn, enough that together they hold ``sets`` times the L2
+    cache, so that each launch finds its input in device memory, as a
+    caller streaming its activations does."""
+    n = max(1, math.ceil(sets * L2_BYTES / (x.numel() * x.element_size())))
+    return itertools.cycle([x] + [x.clone() for _ in range(n - 1)]).__next__, n
+
+
+def aten_mixed_layer_norm() -> str:
+    """"" where ATen's ``F.layer_norm`` takes bf16 x with f32 weight and
+    bias on the card, else the last line of its refusal (asked in a child
+    process, so that a refusal surfaces as its exit code)."""
+    code = ("import torch, torch.nn.functional as F\n"
+            "x = torch.ones(2, 8, device='cuda', dtype=torch.bfloat16)\n"
+            "w = torch.ones(8, device='cuda')\n"
+            "F.layer_norm(x, (8,), w, w, 1e-5)\n"
+            "torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    return "" if proc.returncode == 0 else (proc.stderr.strip().splitlines() or ["no output"])[-1]
 
 
 def attention_backward_bounds(B: int, T: int, H: int) -> dict:
@@ -586,12 +619,16 @@ def main() -> int:
     del q, k, v, g, lse, dq, delta
     torch.cuda.empty_cache()
 
-    # 16. K6 against _reference_ln at the JAX docstring's shape, turbo width,
-    # a ragged row count and f32; the library call is F.layer_norm, which
-    # refuses bf16 input with f32 weights on the card, so it runs on the f32
-    # upcast and casts back
-    for shape, dtype in (((64, 1500, 384), torch.bfloat16), ((8, 1500, 1280), torch.bfloat16),
-                         ((4507, 1280), torch.bfloat16), ((3, 70, 384), torch.float32)):
+    # 16. K6 against _reference_ln at K6_SHAPES; kernel, plain version and
+    # F.layer_norm on the same bytes timed in turns (plain, kernel, library,
+    # kernel, plain) three times over, medians, queued behind a device
+    # sleep, each launch on the next of copies of x that together exceed the
+    # L2 cache. ATen's call takes f32 weights where it accepts them with
+    # bf16 x, else weights rounded to bf16 (the line says which)
+    refusal = aten_mixed_layer_norm()
+    say(f"[16 K6 layer_norm] ATen's F.layer_norm {'refuses' if refusal else 'takes'} bf16 x with "
+        f"f32 scale and bias on the card{': ' + refusal if refusal else ''}")
+    for shape, dtype in K6_SHAPES:
         x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
         scale = torch.randn(shape[-1], device=dev, generator=gen) + 1
         bias = torch.randn(shape[-1], device=dev, generator=gen)
@@ -606,24 +643,31 @@ def main() -> int:
             if dtype == torch.bfloat16 else 0
         ok = check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
                    f"K6 {tuple(shape)} {dtype}: max abs {err:.3g} outside rtol/atol {tol}")
-        ms = cuda_ms(lambda: tln.fused_layer_norm(x, scale, bias), 20)
-        plain = cuda_ms(lambda: tln._reference_ln(x, scale, bias, 1e-5), 20)
         D = shape[-1]
-        if dtype == torch.float32:
-            lib = cuda_ms(lambda: F.layer_norm(x, (D,), scale, bias, 1e-5), 20)
-        else:
-            lib = cuda_ms(lambda: F.layer_norm(x.float(), (D,), scale, bias, 1e-5).to(dtype), 20)
+        nxt, copies = cold_inputs(x)
+        w = (scale, bias) if dtype == torch.float32 or not refusal else \
+            (scale.to(dtype), bias.to(dtype))
+        med = turns_ms({"kernel": lambda: tln.fused_layer_norm(nxt(), scale, bias),
+                        "plain": lambda: tln._reference_ln(nxt(), scale, bias, 1e-5),
+                        "library": lambda: F.layer_norm(nxt(), (D,), *w, 1e-5)},
+                       ("plain", "kernel", "library", "kernel", "plain"), 3,
+                       {"kernel": 20, "plain": 5, "library": 20})
         bnd = bound(2 * x.numel() * x.element_size() + 2 * D * 4, 8 * x.numel(), "f32")
         say(f"[16 K6 layer_norm] {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3g}"
             + (f" (at most {ulps} bf16 ulps apart where |plain| >= 1/8)"
                if dtype == torch.bfloat16 else "")
-            + f" {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            + fmt_bound(bnd, lib, "F.layer_norm" + (" on the f32 upcast" if dtype != torch.float32
-                                                    else "")))
+            + f" {'ok' if ok else 'FAIL'}; cold ({copies} copies of x), medians of 3 rounds of "
+            f"turns: kernel {med['kernel']:.4f} ms ({100 * bnd[0] / med['kernel']:.1f}% of the "
+            f"bound), plain {med['plain']:.4f} ms"
+            + fmt_bound(bnd, med["library"], "F.layer_norm" + (
+                " with the weights rounded to bf16" if w[0].dtype != torch.float32 else ""))
+            + f" (ratio {med['kernel'] / med['library']:.3f})")
         record("layer_norm", "wealy_tpu_torch/csrc/layer_norm.cu",
-               "wealy_tpu/ops/layer_norm.py:26", err, ms, plain, f"{tuple(shape)} {dtype}", bnd,
-               lib)
+               "wealy_tpu/ops/layer_norm.py:26", err, med["kernel"], med["plain"],
+               f"{tuple(shape)} {dtype}", bnd, med["library"])
+        del nxt
     del x, got, want
+    torch.cuda.empty_cache()
 
     reset_counts, counts = launch_counters()
 
@@ -1249,12 +1293,28 @@ def train_cli_phase(tmp: str, dev, reset_counts, counts, smi: str, max_steps: in
     return launched
 
 
+# K6's edges (tests/test_torch_cuda.py holds the same): widths on every route
+# and split (one element an access at 1, 100 and 383; 16 lanes x 3 at 384,
+# 32 x 5 at 1280; the block route from 2048), and more rows than one grid
+# stride covers
+K6_WIDTHS = (1, 64, 100, 383, 384, 512, 1280, 2048, 4096, 8192)
+
+
+def k6_rows(D: int) -> int:
+    """A row count beyond one stride of K6's persistent grid at width D."""
+    return 1_000_003 if D < 64 else 96_005 if D <= 2048 else 20_011
+
+
 def layer_norm_module_phase(dev, gen, reset_counts, counts) -> dict:
     """16 (main path). LayerNormFused(1280) forward and backward on an f32
     (8, 1500, 1280) input and forward on its bf16 cast, the gradients
-    against autograd of the plain version. Returns the launch counts."""
+    against autograd of the plain version; then LayerNormFused(D) for each
+    of K6_WIDTHS in bf16 and f32 on 1, 7 and ``k6_rows(D)`` rows, each
+    called twice (bit-equal), and on a row view 2 or 4 bytes past a 16-byte
+    boundary at 384, 1280 and 8192, against the plain version. Returns the
+    launch counts."""
     from wealy_tpu_torch.models.layers import LayerNormFused
-    from wealy_tpu_torch.ops.layer_norm import _reference_ln
+    from wealy_tpu_torch.ops.layer_norm import BF16_TOL, F32_TOL, _reference_ln
 
     mod = LayerNormFused(1280).to(dev)
     with torch.no_grad():
@@ -1267,18 +1327,55 @@ def layer_norm_module_phase(dev, gen, reset_counts, counts) -> dict:
     with torch.no_grad():
         y16 = mod(x.detach().bfloat16())
     torch.cuda.synchronize()
-    launched = counts()
+    grad_launches = counts()["layer_norm"]
     leaves = [t.detach().requires_grad_() for t in (x, mod.scale, mod.bias)]
     (_reference_ln(*leaves, 1e-5) * r).sum().backward()
     errs = [(got - want.grad).abs().max().item()
             for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves)]
     ok = check(all(torch.allclose(got, want.grad, rtol=1e-5, atol=1e-6)
                    for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves))
-               and y16.dtype == torch.bfloat16 and launched["layer_norm"] == 2,
-               f"phase 16 LayerNormFused gradients max abs {errs}, launches {launched}")
+               and y16.dtype == torch.bfloat16 and grad_launches == 2,
+               f"phase 16 LayerNormFused gradients max abs {errs}, launches {grad_launches}")
+    del x, r, y16, leaves, mod
+    worst, failed, calls = {}, [], 2
+    with torch.no_grad():
+        for D in K6_WIDTHS:
+            for dtype in (torch.bfloat16, torch.float32):
+                mod = LayerNormFused(D).to(dev)
+                mod.scale.copy_(torch.randn(D, device=dev, generator=gen) + 1)
+                mod.bias.copy_(torch.randn(D, device=dev, generator=gen))
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                cases = [(n, False) for n in (1, 7, k6_rows(D))]
+                cases += [(6, True)] if D in (384, 1280, 8192) else []
+                for n, misaligned in cases:
+                    if misaligned:  # one element past the allocation's start
+                        flat = torch.randn(n * D + 1, device=dev, generator=gen).to(dtype)
+                        x = flat[1:].view(n, D)
+                    else:
+                        x = torch.randn(n, D, device=dev, generator=gen).to(dtype)
+                    y = mod(x)
+                    again = None if misaligned else mod(x)
+                    calls += 1 if misaligned else 2
+                    want = _reference_ln(x, mod.scale, mod.bias, 1e-5)
+                    err = (y.float() - want.float()).abs().max().item()
+                    key = str(dtype)[6:]
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    if not (torch.allclose(y.float(), want.float(), rtol=tol, atol=tol)
+                            and y.dtype == dtype and (again is None or torch.equal(y, again))):
+                        failed.append(f"D={D} {key} rows={n}{' misaligned' if misaligned else ''}"
+                                      f" max abs {err:.3g}")
+                del mod, x, y, again, want
+        torch.cuda.synchronize()
+    launched = counts()
+    torch.cuda.empty_cache()
+    ok &= check(not failed and launched["layer_norm"] == calls,
+                f"phase 16 LayerNormFused widths: {failed[:6]}, K6 launches "
+                f"{launched['layer_norm']} of {calls}")
     say(f"[16 LayerNormFused] (8, 1500, 1280) f32 forward + backward and bf16 forward on the "
         f"card: gradient max abs x/scale/bias {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} against "
-        f"autograd of the plain version {'ok' if ok else 'FAIL'}; K6 launches "
+        f"autograd of the plain version; widths {K6_WIDTHS} in bf16 and f32 on 1, 7 and "
+        f"beyond one grid stride of rows (repeats bit-equal) and misaligned views: max abs "
+        f"{worst} ({len(failed)} failed) {'ok' if ok else 'FAIL'}; K6 launches "
         f"{launched['layer_norm']}")
     return launched
 

@@ -13,8 +13,9 @@ chunks up to one larger than shared memory, and bpwr-n rounds on each
 route (K4, bit-equal to its plain version and to a repeat), the launch
 counters, the shapes the kernels refuse, the encoder's routing through K2
 and K3, the gradient of a two-block bf16 encoder through K2/K5a/K5b/K3
-against its plain path, K6 at the shapes chip_smoke.py holds it at plus a
-width off the 16-byte access and a misaligned row, and the serving
+against its plain path, K6 at the shapes chip_smoke.py holds it at, at every
+route and split of a row from 1 to 8192 wide on 1, 7 and many rows
+(repeats bit-equal), and on misaligned rows, and the serving
 engine's resident corpus (f16 and int8) against its host path on the card.
 All use the tolerances defined beside the kernels. Marked ``cuda``; each
 skips without a card.
@@ -476,7 +477,7 @@ def test_resident_and_streamed_ranks_bit_equal_on_card(dev):
 def test_layer_norm_kernel_against_plain(dev, shape, dtype):
     """K6 against _reference_ln on the same input (f32: rtol/atol 1e-5;
     bf16: 2e-2): the phase-16 shapes, a width off the 16-byte access (one
-    element per access), the widest row and a one-wide row."""
+    element per access), a row on the block route and a one-wide row."""
     g = torch.Generator(device=dev).manual_seed(16)
     x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dtype)
     scale = torch.randn(shape[-1], device=dev, generator=g) + 1
@@ -487,6 +488,48 @@ def test_layer_norm_kernel_against_plain(dev, shape, dtype):
     tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
     torch.testing.assert_close(got.float(), tln._reference_ln(x, scale, bias, 1e-5).float(),
                                rtol=tol, atol=tol)
+
+
+# K6's widths on every route and split (chip_smoke.py phase 16 runs the same):
+# one element an access at 1, 100 and 383, 16 lanes x 3 at 384 bf16, 32 x 5
+# at 1280 bf16, the block route from 2048
+LN_WIDTHS = (1, 64, 100, 383, 384, 512, 1280, 2048, 4096, 8192)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", LN_WIDTHS)
+def test_layer_norm_kernel_widths(dev, D, dtype):
+    """K6 at width D on 1 and 7 rows and on more rows than one stride of its
+    persistent grid covers, against the plain version; a second launch on
+    the same input is bit-equal (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    scale = torch.randn(D, device=dev, generator=g) + 1
+    bias = torch.randn(D, device=dev, generator=g)
+    tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
+    for n in (1, 7, 1_000_003 if D < 64 else 96_005 if D <= 2048 else 20_011):
+        x = (torch.randn(n, D, device=dev, generator=g) * 2 + 0.5).to(dtype)
+        before = tln.fused_layer_norm.launches
+        got = tln.fused_layer_norm(x, scale, bias)
+        again = tln.fused_layer_norm(x, scale, bias)
+        assert tln.fused_layer_norm.launches == before + 2 and got.dtype == dtype
+        assert torch.equal(got, again), f"rows={n}: a repeat differs"
+        torch.testing.assert_close(got.float(), tln._reference_ln(x, scale, bias, 1e-5).float(),
+                                   rtol=tol, atol=tol, msg=lambda m: f"rows={n}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [384, 1280, 8192])
+def test_layer_norm_kernel_misaligned_rows(dev, D, dtype):
+    """Rows that start one element past a 16-byte boundary take one element
+    an access, on the row route and on the block route."""
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    flat = torch.randn(6 * D + 1, device=dev, generator=g).to(dtype)
+    x = flat[1:].view(6, D)
+    scale = torch.randn(D, device=dev, generator=g) + 1
+    bias = torch.randn(D, device=dev, generator=g)
+    tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
+    torch.testing.assert_close(tln.fused_layer_norm(x, scale, bias).float(),
+                               tln._reference_ln(x, scale, bias, 1e-5).float(), rtol=tol, atol=tol)
 
 
 def test_layer_norm_kernel_misaligned_view_and_module_grads(dev):

@@ -28,7 +28,8 @@ def _inputs(shape, seed=0):
     return x, scale, bias
 
 
-@pytest.mark.parametrize("shape", [(3, 70, 384), (5, 64), (2, 7, 1280), (4, 33)])
+@pytest.mark.parametrize("shape", [(3, 70, 384), (5, 64), (2, 7, 1280), (4, 33), (4, 4096),
+                                   (3, 8192)])
 def test_plain_version_matches_jax_f32(shape):
     x, scale, bias = _inputs(shape)
     got = tln._reference_ln(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
@@ -43,7 +44,7 @@ def test_plain_version_matches_jax_f32(shape):
     np.testing.assert_allclose(got, want_kernel, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("shape", [(16, 384), (3, 50, 512)])
+@pytest.mark.parametrize("shape", [(16, 384), (3, 50, 512), (4, 4096), (2, 8192)])
 def test_plain_version_matches_jax_bf16(shape):
     x, scale, bias = _inputs(shape, seed=1)
     xb = torch.from_numpy(x).bfloat16()
@@ -127,9 +128,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = tln.fused_layer_norm.launches
     x = torch.zeros(4, 64, device="meta")
     s = torch.ones(64, device="meta")
+    wide = tln.MAX_D + 1
     for args in ((x, s, s), (x.half(), s, s), (x, s[:32], s),
-                 (torch.zeros(2, 4096, device="meta"), torch.ones(4096, device="meta"),
-                  torch.ones(4096, device="meta"))):
-        with pytest.raises(ValueError, match="fused_layer_norm"):
+                 (torch.zeros(2, wide, device="meta"), torch.ones(wide, device="meta"),
+                  torch.ones(wide, device="meta"))):
+        with pytest.raises(ValueError, match=f"fused_layer_norm.*D <= {tln.MAX_D}"):
             tln.fused_layer_norm(*args)
     assert tln.fused_layer_norm.launches == before
+
+
+def _plan_columns(plan, D):
+    """The columns each access of K6's plan covers, by the kernel's index
+    arithmetic (csrc/layer_norm.cu): row route, lane j of a row takes
+    accesses j + i * lanes for i < per_lane; block route, thread t takes t,
+    t + threads, ...; accesses at or past D / vec hold no column."""
+    route, vec, lanes, per_lane = plan
+    n = D // vec
+    steps = per_lane if route == tln.ROW else -(-n // lanes)
+    a = (np.arange(lanes)[:, None] + np.arange(steps)[None, :] * lanes).ravel()
+    a = a[a < n]
+    return (a[:, None] * vec + np.arange(vec)).ravel()
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_launch_plan_covers_each_column_once(bf16, aligned):
+    """For every width from 1 to 8192: K6's plan covers each column exactly
+    once; the row route's lanes are a power of 2 up to 32 and a lane holds
+    at most ROW_VALUES values, in a register share the kernel is built for,
+    split evenly wherever it takes 16-byte accesses; the block route's row
+    fits the shared memory of a block; only aligned rows take 16-byte
+    accesses."""
+    esz = 2 if bf16 else 4
+    for D in range(1, 8193):
+        route, vec, lanes, per_lane = plan = tln.launch_plan(D, bf16, aligned)
+        assert D % vec == 0 and vec in (1, 16 // esz) and (aligned or vec == 1), (D, plan)
+        cols = _plan_columns(plan, D)
+        assert cols.size == D and np.array_equal(np.sort(cols), np.arange(D)), (D, plan)
+        if route == tln.ROW:
+            assert lanes in (1, 2, 4, 8, 16, 32) and per_lane in tln.ROW_ACCESSES[vec], (D, plan)
+            assert per_lane * vec <= tln.ROW_VALUES, (D, plan)
+            assert vec == 1 or lanes * per_lane * vec == D, (D, plan)
+        else:
+            assert route == tln.BLOCK and lanes == tln.BLOCK_THREADS, (D, plan)
+            assert D > 32 * tln.ROW_ACCESSES[1][-1] and D * esz <= 227 * 1024, (D, plan)
+
+
+def test_launch_plan_splits_the_repo_widths_evenly():
+    """The splits the kernel is designed around: 16 lanes x 3 accesses at
+    D = 384 bf16 (two rows a warp), 32 x 5 at 1280 bf16, 32 x 3 and 32 x 10
+    in f32; one element an access off a 16-byte boundary; the block route
+    from 2048 bf16 up to MAX_D."""
+    assert tln.launch_plan(384, True, True) == (tln.ROW, 8, 16, 3)
+    assert tln.launch_plan(1280, True, True) == (tln.ROW, 8, 32, 5)
+    assert tln.launch_plan(512, True, True) == (tln.ROW, 8, 32, 2)
+    assert tln.launch_plan(384, False, True) == (tln.ROW, 4, 32, 3)
+    assert tln.launch_plan(1280, False, True) == (tln.ROW, 4, 32, 10)
+    assert tln.launch_plan(384, True, False) == (tln.ROW, 1, 32, 16)
+    assert tln.launch_plan(1280, True, False) == (tln.BLOCK, 1, 256, 5)
+    assert tln.launch_plan(100, True, True) == (tln.ROW, 1, 32, 4)
+    assert tln.launch_plan(2048, True, True) == (tln.BLOCK, 8, 256, 1)
+    assert tln.launch_plan(8192, False, True) == (tln.BLOCK, 4, 256, 8)
+    assert tln.launch_plan(tln.MAX_D, False, False) == (tln.BLOCK, 1, 256, 128)

@@ -452,17 +452,6 @@ __global__ void __launch_bounds__(kBlockThreads) bpwr_block_kernel(const Tile t,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
 // warps per block for `warps` warps in all: four, halved while the grid
 // would give fewer than two blocks to each SM
 int warps_per_block(long long warps) {

@@ -8,3 +8,15 @@
 #define WEALY_API extern "C" __attribute__((visibility("default")))
 
 typedef __nv_bfloat16 bf16;
+
+// the card's SM count (the first query's answer, kept for the process)
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}

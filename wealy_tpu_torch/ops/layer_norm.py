@@ -13,10 +13,14 @@ padding of rows to ``ROW_BLOCK`` has no counterpart.
 
 What bounds it on an H100: device memory. It reads each row once and
 writes it once (at (64, 1500, 384) bf16, 147 MB, about 44 us at 3.35
-TB/s) and does about 8 operations per element. The design keeps a row in
-registers (one warp per row, 16-byte loads) for both statistics passes and
-the affine transform, so nothing but x and the output crosses device
-memory.
+TB/s) and does about 8 operations per element. The kernel keeps a row in
+registers (the row route: a persistent grid, a few lanes a row, 16-byte
+streaming loads, the next rows' loads in flight during this row's
+reductions, scale and bias held in registers) or, for rows too wide for a
+lane's registers, in shared memory (the block route: a block a row), so
+nothing but x and the output crosses device memory. :func:`launch_plan`
+picks the route and the split of a row over lanes; the kernel takes
+1 <= D <= ``MAX_D``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,39 @@ from wealy_tpu_torch import _build
 # tests/test_layer_norm.py's bounds against the plain version
 F32_TOL = 1e-5  # rtol and atol, f32 input (:18)
 BF16_TOL = 2e-2  # rtol and atol, bf16 output (:29)
-MAX_D = 2048  # kMaxD in csrc/layer_norm.cu
+# the launch plan's limits, as csrc/layer_norm.cu's constants
+MAX_D = 32768  # kMaxD: the block route stages a row of up to 128 KB (f32) in shared memory
+ROW_VALUES = 40  # kRowValues: a lane's values on the row route
+BLOCK_THREADS = 256  # kBlockThreads: a block's threads on the block route
+ROW, BLOCK = 0, 1  # the routes
+# accesses a lane that the row route is built for, by values an access
+# (16 bytes of bf16, of f32, or one element)
+ROW_ACCESSES = {8: tuple(range(1, ROW_VALUES // 8 + 1)), 4: tuple(range(1, ROW_VALUES // 4 + 1)),
+                1: (1, 2, 4, 8, 16, 24)}
+
+
+def launch_plan(D: int, bf16: bool, aligned: bool) -> tuple[int, int, int, int]:
+    """(route, vec, lanes, per_lane) of K6 for rows of width D: ``vec``
+    values an access (16 bytes where ``aligned``, meaning x, the output,
+    scale and bias all start on a 16-byte boundary, and D divides; else
+    1). The row route takes an even split of the row's accesses, ``lanes``
+    (a power of 2 up to 32) times ``per_lane``, within ``ROW_VALUES`` values
+    a lane; a width that no such split covers takes one element an access,
+    ``lanes`` x ``per_lane`` covering D with the last accesses guarded;
+    wider rows take the block route (``lanes`` is then the block's
+    threads, ``per_lane`` the accesses each takes)."""
+    epv = 8 if bf16 else 4
+    vec = epv if aligned and D % epv == 0 else 1
+    if vec > 1:
+        n = D // vec
+        lanes = min(32, n & -n)
+        if n // lanes * vec <= ROW_VALUES:
+            return ROW, vec, lanes, n // lanes
+    if D <= 32 * ROW_ACCESSES[1][-1]:
+        lanes = min(32, 1 << (D - 1).bit_length())
+        need = -(-D // lanes)
+        return ROW, 1, lanes, next(a for a in ROW_ACCESSES[1] if a >= need)
+    return BLOCK, vec, BLOCK_THREADS, -(-(D // vec) // BLOCK_THREADS)
 
 
 def _reference_ln(x, scale, bias, eps: float):
@@ -69,10 +105,12 @@ def _launch_ln(x, scale, bias, eps: float):
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(xr)
     if xr.shape[0]:
+        bf16 = x.dtype == torch.bfloat16
+        aligned = all(t.data_ptr() % 16 == 0 for t in (xr, out, scale, bias))
         _build.check(
             _build.library().wealy_layer_norm(
                 xr.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                xr.shape[0], D, int(x.dtype == torch.bfloat16), float(eps),
+                xr.shape[0], D, int(bf16), float(eps), *launch_plan(D, bf16, aligned),
                 _build.stream(x.device),
             ),
             "fused_layer_norm",
