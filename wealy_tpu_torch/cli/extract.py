@@ -15,6 +15,7 @@ from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS, WhisperConfig
 from wealy_tpu_torch.models.whisper.convert import load_openai_state_dict
 from wealy_tpu_torch.models.whisper.model import Whisper
+from wealy_tpu_torch.utils.profiling import trace_span
 
 
 def load_whisper_model(
@@ -28,14 +29,15 @@ def load_whisper_model(
     caller asks for the CPU): weights from an openai-whisper or HF
     checkpoint when given, otherwise a seeded random init drawn on the CPU,
     so that the card and the CPU get the same weights (no weights are
-    downloaded)."""
+    downloaded). The build and the load are a ``whisper.load`` span."""
     cfg = WHISPER_CONFIGS[size]
     device = resolve_device(device)
-    model = Whisper(cfg, dtype=dtype, device=device)
-    if checkpoint:
-        model.load_state_dict(load_openai_state_dict(checkpoint))
-    else:
-        model.init_weights(torch.Generator().manual_seed(seed))
+    with trace_span("whisper.load"):
+        model = Whisper(cfg, dtype=dtype, device=device)
+        if checkpoint:
+            model.load_state_dict(load_openai_state_dict(checkpoint))
+        else:
+            model.init_weights(torch.Generator().manual_seed(seed))
     return model.eval(), cfg
 
 

@@ -19,6 +19,15 @@ releases the GIL); every CUDA call is made on the calling thread, and each
 batch costs one device-to-host copy. The last batch is padded with zero
 rows to ``batch_size``, so the embed function sees one shape.
 
+Each stage is a span of ``utils/profiling.py``: ``audio.load`` (a song's
+decode and resample on a decode thread, its ``n`` the song's chunks),
+``extract.next_batch`` (the loop's wait for its next batch),
+``extract.pad`` (the chunks copied into the batch buffer), ``extract.h2d``
+(the upload), ``whisper.encode`` (mel + encoder, timed on the card too),
+``extract.d2h`` (the batch's sync and copy back) and ``extract.scatter``
+(the song accumulators and the store or sink), all inside the
+``extract.batch`` span of the device call but the first two and the last.
+
 The embed functions of the split jobs and of the query path:
 
 - :func:`make_encoder_embed_fn`: mel (K1) -> encoder (K2/K3) -> mean pool,
@@ -46,6 +55,7 @@ the files are those one process writes.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -55,7 +65,7 @@ from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.audio.mel import N_SAMPLES
 from wealy_tpu_torch.cli.extract import load_whisper_model
-from wealy_tpu_torch.models.whisper.extract import chunk_waveform
+from wealy_tpu_torch.models.whisper.extract import chunk_count, chunk_waveform
 from wealy_tpu_torch.parallel.mesh import barrier, shard_rows
 from wealy_tpu_torch.utils.prefetch import prefetch
 from wealy_tpu_torch.utils.profiling import ThroughputMeter, trace_span
@@ -81,6 +91,12 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
     versions = ds.versions[:limit] if limit else ds.versions
     index_of = {v: i for i, v in enumerate(ds.versions)}
 
+    def load(version_key):
+        with trace_span("audio.load") as span:
+            item = ds[index_of[version_key]]
+            span.n = chunk_count(len(item.waveform))
+        return item
+
     def chunks_of(version_key, item):
         chunks = chunk_waveform(item.waveform)
         for i in range(chunks.shape[0]):
@@ -88,7 +104,7 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
 
     if n_workers <= 1:
         for version_key in versions:
-            yield from chunks_of(version_key, ds[index_of[version_key]])
+            yield from chunks_of(version_key, load(version_key))
         return
 
     from collections import deque
@@ -102,7 +118,7 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
             v = next(it, None)
             if v is None:
                 return False
-            pending.append((v, pool.submit(ds.__getitem__, index_of[v])))
+            pending.append((v, pool.submit(load, v)))
             return True
 
         for _ in range(2 * n_workers):
@@ -119,7 +135,8 @@ def _host(x) -> np.ndarray:
     """A batch output as f32 numpy (a bf16 tensor through ``float()``: numpy
     has no bf16). For a card tensor this is the batch's one sync."""
     if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
+        with trace_span("extract.d2h"):
+            return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -152,22 +169,23 @@ def _writer(mesh, save):
 
 
 def _batches(ds, batch_size: int, n_workers: int):
-    """Lists of up to ``batch_size`` stream entries, the last one partial."""
-    pending: List[Tuple[str, int, int, np.ndarray]] = []
-    for entry in prefetch(_chunk_stream(ds, None, n_workers=n_workers), depth=2 * batch_size):
-        pending.append(entry)
-        if len(pending) == batch_size:
-            yield pending
-            pending = []
-    if pending:
-        yield pending
+    """Lists of up to ``batch_size`` stream entries, the last one partial;
+    the consumer's wait for each is an ``extract.next_batch`` span."""
+    stream = prefetch(_chunk_stream(ds, None, n_workers=n_workers), depth=2 * batch_size)
+    while True:
+        with trace_span("extract.next_batch"):
+            batch = list(itertools.islice(stream, batch_size))
+        if not batch:
+            return
+        yield batch
 
 
 def _padded(batch, buf: np.ndarray) -> torch.Tensor:
     """The batch's chunks in the rows of ``buf``, zero rows after them."""
-    for i, (_, _, _, chunk) in enumerate(batch):
-        buf[i] = chunk
-    buf[len(batch):] = 0.0
+    with trace_span("extract.pad"):
+        for i, (_, _, _, chunk) in enumerate(batch):
+            buf[i] = chunk
+        buf[len(batch):] = 0.0
     return torch.from_numpy(buf)
 
 
@@ -223,18 +241,19 @@ def extract_split_batched(
         with trace_span("extract.batch"):
             z = _host(embed_fn(_padded(batch, buf)))[: len(batch)]
         meter.tick(len(batch))
-        for (version_key, chunk_idx, n_chunks, _), emb in zip(batch, z):
-            acc = accs.get(version_key)
-            if acc is None:
-                acc = accs[version_key] = _SongAcc(version_key, n_chunks)
-            if acc.embeddings is None:
-                acc.embeddings = np.zeros((n_chunks, emb.shape[-1]), np.float32)
-            acc.embeddings[chunk_idx] = emb
-            acc.received += 1
-            if acc.received == acc.n_chunks:
-                save(version_key, embeddings=acc.embeddings)
-                done.append(version_key)
-                del accs[version_key]
+        with trace_span("extract.scatter"):
+            for (version_key, chunk_idx, n_chunks, _), emb in zip(batch, z):
+                acc = accs.get(version_key)
+                if acc is None:
+                    acc = accs[version_key] = _SongAcc(version_key, n_chunks)
+                if acc.embeddings is None:
+                    acc.embeddings = np.zeros((n_chunks, emb.shape[-1]), np.float32)
+                acc.embeddings[chunk_idx] = emb
+                acc.received += 1
+                if acc.received == acc.n_chunks:
+                    save(version_key, embeddings=acc.embeddings)
+                    done.append(version_key)
+                    del accs[version_key]
         if done and len(done) % 200 == 0:
             log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
 
@@ -290,18 +309,19 @@ def extract_split_batched_decoder(
             hidden = _host(hidden)[: len(batch)]
         lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
         meter.tick(len(batch))
-        for (version_key, chunk_idx, n_chunks, _), hid, L in zip(batch, hidden, lengths):
-            hidden_acc.setdefault(version_key, [None] * n_chunks)[chunk_idx] = hid
-            length_acc.setdefault(version_key, [0] * n_chunks)[chunk_idx] = int(L)
-            if all(h is not None for h in hidden_acc[version_key]):
-                hid_all = np.stack(hidden_acc[version_key])  # (n_chunks, max_len, D)
-                lens = np.array(length_acc[version_key], np.int32)
-                if flatten:
-                    save(version_key, embeddings=flatten_decoder_sequence(hid_all, lens))
-                else:
-                    save(version_key, embeddings=hid_all, lengths=lens)
-                done.append(version_key)
-                del hidden_acc[version_key], length_acc[version_key]
+        with trace_span("extract.scatter"):
+            for (version_key, chunk_idx, n_chunks, _), hid, L in zip(batch, hidden, lengths):
+                hidden_acc.setdefault(version_key, [None] * n_chunks)[chunk_idx] = hid
+                length_acc.setdefault(version_key, [0] * n_chunks)[chunk_idx] = int(L)
+                if all(h is not None for h in hidden_acc[version_key]):
+                    hid_all = np.stack(hidden_acc[version_key])  # (n_chunks, max_len, D)
+                    lens = np.array(length_acc[version_key], np.int32)
+                    if flatten:
+                        save(version_key, embeddings=flatten_decoder_sequence(hid_all, lens))
+                    else:
+                        save(version_key, embeddings=hid_all, lengths=lens)
+                    done.append(version_key)
+                    del hidden_acc[version_key], length_acc[version_key]
         if done and len(done) % 200 == 0:
             log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
 
@@ -311,7 +331,9 @@ def extract_split_batched_decoder(
 
 
 def _chunks(audio, device) -> torch.Tensor:
-    return torch.as_tensor(audio, dtype=torch.float32).to(device)
+    """The batch on ``device``: the ``extract.h2d`` span."""
+    with trace_span("extract.h2d"):
+        return torch.as_tensor(audio, dtype=torch.float32).to(device)
 
 
 def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int8: bool = False,
@@ -329,8 +351,10 @@ def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int
 
         @torch.inference_mode()
         def embed_q(audio):
-            mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=qenc.config.n_mels)
-            return qenc(mel).mean(dim=1)
+            x = _chunks(audio, device)
+            with trace_span("whisper.encode", device=device):
+                states = qenc(log_mel_spectrogram_fused(x, n_mels=qenc.config.n_mels))
+            return states.mean(dim=1)
 
         return embed_q
     model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
@@ -338,8 +362,10 @@ def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int
 
     @torch.inference_mode()
     def embed(audio):
-        mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=wcfg.n_mels)
-        return model.encode(mel).mean(dim=1)
+        x = _chunks(audio, device)
+        with trace_span("whisper.encode", device=device):
+            states = model.encode(log_mel_spectrogram_fused(x, n_mels=wcfg.n_mels))
+        return states.mean(dim=1)
 
     return embed
 
@@ -362,7 +388,7 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
     tensor-parallel Whisper (``parallel/tp.py``) on a (data, model) mesh of
     the process group's ranks, ``tp`` ranks to a model, the rows sharded
     over ``data``; not with ``mesh``."""
-    from wealy_tpu_torch.models.whisper.extract import decoder_embeddings
+    from wealy_tpu_torch.models.whisper.extract import decoder_embeddings, encoder_states
 
     f8 = {"cross_kv_dtype": torch.float8_e4m3fn if cross_kv_f8 else None,
           "self_kv_dtype": torch.float8_e4m3fn if self_kv_f8 else None}
@@ -386,8 +412,12 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
 
     @torch.inference_mode()
     def decode_fn(audio):
-        mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=wcfg.n_mels)
-        out = decoder_embeddings(model, mel, wcfg, language=language, max_len=max_len, **f8)
+        x = _chunks(audio, device)
+        with trace_span("whisper.encode", device=device):
+            mel = log_mel_spectrogram_fused(x, n_mels=wcfg.n_mels)
+            states = encoder_states(model, mel)
+        out = decoder_embeddings(model, mel, wcfg, language=language, max_len=max_len,
+                                 states=states, **f8)
         return out["hidden"], out["lengths"]
 
     return shard_rows(mesh, decode_fn)
@@ -427,8 +457,9 @@ def make_wealy_embed_fn(config, hf_checkpoint: Optional[str] = None,
 
     @torch.inference_mode()
     def embed(audio):
-        mel = log_mel_spectrogram_fused(_chunks(audio, device), n_mels=wcfg.n_mels)
-        states = model.encode(mel)
+        x = _chunks(audio, device)
+        with trace_span("whisper.encode", device=device):
+            states = model.encode(log_mel_spectrogram_fused(x, n_mels=wcfg.n_mels))
         return head(states, torch.ones(states.shape[:2], dtype=torch.bool, device=device))
 
     return embed

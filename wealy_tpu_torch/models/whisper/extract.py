@@ -27,10 +27,15 @@ from wealy_tpu_torch.models.whisper.generate import default_prompt, greedy_decod
 from wealy_tpu_torch.models.whisper.model import Whisper
 
 
+def chunk_count(length: int, n_samples: int = N_SAMPLES) -> int:
+    """The number of chunks :func:`chunk_waveform` cuts ``length`` samples into."""
+    return max(1, -(-length // n_samples))
+
+
 def chunk_waveform(audio: np.ndarray, n_samples: int = N_SAMPLES) -> np.ndarray:
     """Split a 1-D waveform into zero-padded 30 s chunks: (n_chunks, n_samples)."""
     audio = np.asarray(audio, dtype=np.float32)
-    n_chunks = max(1, -(-len(audio) // n_samples))
+    n_chunks = chunk_count(len(audio), n_samples)
     out = np.zeros((n_chunks, n_samples), np.float32)
     for i in range(n_chunks):
         seg = audio[i * n_samples : (i + 1) * n_samples]

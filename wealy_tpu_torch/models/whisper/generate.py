@@ -9,7 +9,8 @@ decoder's last hidden state for every position; the long-form ladder
 (:mod:`wealy_tpu_torch.models.whisper.longform`) also samples. The step loop
 is a Python loop that stops as soon as every row has emitted
 <|endoftext|> (one host sync per step); buffers are static (``max_len``)
-so the outputs match the JAX ones.
+so the outputs match the JAX ones. Each step is a ``whisper.decode_step``
+span (``utils/profiling.py``).
 
 Sampling draws from an explicit ``torch.Generator`` on the decode's
 device (Gumbel-max over ``logits / temperature``). It cannot reproduce
@@ -26,6 +27,7 @@ import torch
 
 from wealy_tpu_torch.models.whisper.config import WhisperConfig
 from wealy_tpu_torch.models.whisper.model import Whisper
+from wealy_tpu_torch.utils.profiling import trace_span
 
 
 def default_prompt(config: WhisperConfig, language: Optional[int] = None) -> list[int]:
@@ -228,19 +230,23 @@ def greedy_decode(
     tokens[:, P] = next_tok
     finished = next_tok == eot
 
+    # each step's span closes after its one host sync (``finished.all()``)
     i = P
-    while i < max_len - 1 and not bool(finished.all()):
-        hid, logits, caches = model.decode(
-            tokens[:, i : i + 1], None, kv_caches=caches, cache_index=i, xa_kv=xa_kv,
-            logit_weight=logit_weight,
-        )
-        hidden_buf[:, i] = hid[:, 0]
-        nxt, logp = choose_tokens(logits[:, -1], temperature, generator, suppress)
-        nxt = torch.where(finished, eot, nxt)
-        sum_logprob = sum_logprob + torch.where(finished, 0.0, logp)
-        tokens[:, i + 1] = nxt
-        finished = finished | (nxt == eot)
-        i += 1
+    running = i < max_len - 1 and not bool(finished.all())
+    while running:
+        with trace_span("whisper.decode_step"):
+            hid, logits, caches = model.decode(
+                tokens[:, i : i + 1], None, kv_caches=caches, cache_index=i, xa_kv=xa_kv,
+                logit_weight=logit_weight,
+            )
+            hidden_buf[:, i] = hid[:, 0]
+            nxt, logp = choose_tokens(logits[:, -1], temperature, generator, suppress)
+            nxt = torch.where(finished, eot, nxt)
+            sum_logprob = sum_logprob + torch.where(finished, 0.0, logp)
+            tokens[:, i + 1] = nxt
+            finished = finished | (nxt == eot)
+            i += 1
+            running = i < max_len - 1 and not bool(finished.all())
 
     return {
         "tokens": tokens,

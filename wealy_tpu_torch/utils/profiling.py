@@ -1,8 +1,14 @@
 """Tracing and throughput counters, the counterpart of
 ``wealy_tpu.utils.profiling``:
 
-- :func:`trace_span`: a named span (``torch.profiler.record_function``)
-  in a captured trace; costs next to nothing when no trace is captured.
+- :class:`trace_span`: a named span. Every span is kept, with its start,
+  end and thread on the ``time.perf_counter`` clock, in one bounded
+  process-wide ring (the last :data:`RING_SIZE` entries); while a profiler
+  runs on the calling thread it is also a ``record_function`` in the
+  captured trace. ``device=`` (a ``torch.device``; when it is a card) also
+  times it on the card with a pair of CUDA events, read lazily (for a few
+  coarse spans a batch). :func:`spans` reads the ring over a window of the
+  host clock.
 - :func:`start_trace` / :func:`stop_trace`: capture a trace of the host and
   the card (``torch.profiler`` with the CPU and, where a card is present,
   the CUDA activities) into a directory, as a Chrome / TensorBoard trace
@@ -17,9 +23,11 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,13 +37,70 @@ import torch
 _PROFILER: Optional[torch.profiler.profile] = None
 # the trace events that are work on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the ring's length: about 300 batches of the hs_last_seq job's spans
+RING_SIZE = 65536
+_RING: collections.deque = collections.deque(maxlen=RING_SIZE)
+# bound once: a span is on the hot path of the decode loop
+_profiler_enabled = torch.autograd._profiler_enabled
+_clock = time.perf_counter
+_thread = threading.get_ident
 
 
-@contextlib.contextmanager
-def trace_span(name: str):
-    """Named span visible in captured traces."""
-    with torch.profiler.record_function(name):
-        yield
+class trace_span:
+    """A named span (a context manager), kept in the ring when it closes:
+    ``name``, ``t0`` / ``t1`` (``time.perf_counter`` at its entry and exit),
+    ``thread`` (``threading.get_ident``), ``n`` (a number the caller may set
+    inside it, e.g. the chunks of a song; None otherwise) and
+    :attr:`device_ms`. ``record_function`` is opened only while a profiler
+    runs on the calling thread, so a span costs a clock read and an append
+    otherwise."""
+
+    __slots__ = ("name", "n", "t0", "t1", "thread", "_device", "_rf", "_events", "_ms")
+
+    def __init__(self, name: str, device: Optional[torch.device] = None):
+        self.name, self._device = name, device
+        self.n = self._rf = self._events = self._ms = None
+
+    def __enter__(self) -> "trace_span":
+        self.t0 = _clock()
+        if _profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if self._device is not None and self._device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._events = (start, None)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events = (self._events[0], end)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        self.t1 = _clock()
+        self.thread = _thread()
+        _RING.append(self)
+        return False
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds between the span's two events on the card (waits
+        for the second), or None where none were recorded."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            self._ms, self._events = start.elapsed_time(end), None
+        return self._ms
+
+
+def spans(since: Optional[float] = None, until: Optional[float] = None) -> list:
+    """The ring's spans that ended in [``since``, ``until``]
+    (``time.perf_counter``; open ends by default), oldest first."""
+    return [s for s in list(_RING)
+            if (since is None or s.t1 >= since) and (until is None or s.t1 <= until)]
 
 
 def start_trace(log_dir: str) -> None:
