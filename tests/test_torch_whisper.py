@@ -93,9 +93,11 @@ def test_incremental_decode_f32_matches_jax(f32_pair, mel):
         states = port.encode(torch.from_numpy(mel))
         xa_kv = port.precompute_cross_kv(states)
         for start, stop in ((0, 3), (3, 4), (4, 5)):
+            # the prefill at 0, then one-token steps at a device index
             h, _, tcaches = port.decode(
                 torch.from_numpy(TOKENS[:, start:stop]).long(), None,
-                kv_caches=tcaches, cache_index=start, xa_kv=xa_kv,
+                kv_caches=tcaches, cache_index=torch.tensor([start]) if start else 0,
+                xa_kv=xa_kv,
             )
             got.append(h.numpy())
     np.testing.assert_allclose(
@@ -139,7 +141,7 @@ def test_hoisted_decode_operands_change_nothing(mel):
             for start, stop in ((0, 3), (3, 4)):
                 h, logits, caches = port.decode(
                     torch.from_numpy(TOKENS[:, start:stop]).long(), None,
-                    kv_caches=caches, cache_index=start, **kw,
+                    kv_caches=caches, cache_index=torch.tensor([start]) if start else 0, **kw,
                 )
             outs.append((h, logits))
     assert torch.equal(outs[0][0], outs[1][0])

@@ -387,8 +387,11 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
     decode; the KV caches stay on each rank). ``tp`` > 1: the
     tensor-parallel Whisper (``parallel/tp.py``) on a (data, model) mesh of
     the process group's ranks, ``tp`` ranks to a model, the rows sharded
-    over ``data``; not with ``mesh``."""
+    over ``data``; not with ``mesh``. The returned fn's ``release()`` frees
+    the step graph that the greedy decode keeps on the card between calls
+    (``models/whisper/generate.py::release_step_graph``)."""
     from wealy_tpu_torch.models.whisper.extract import decoder_embeddings, encoder_states
+    from wealy_tpu_torch.models.whisper.generate import release_step_graph
 
     f8 = {"cross_kv_dtype": torch.float8_e4m3fn if cross_kv_f8 else None,
           "self_kv_dtype": torch.float8_e4m3fn if self_kv_f8 else None}
@@ -420,7 +423,9 @@ def make_decoder_embed_fn(config, hf_checkpoint: Optional[str] = None,
                                  states=states, **f8)
         return out["hidden"], out["lengths"]
 
-    return shard_rows(mesh, decode_fn)
+    fn = shard_rows(mesh, decode_fn)
+    fn.release = lambda: release_step_graph(model)  # the step graph the decode keeps on the card
+    return fn
 
 
 def bf16_head(head, device):

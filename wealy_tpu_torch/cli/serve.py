@@ -327,6 +327,7 @@ def make_query_embed_fn(config, device=None):
     kind = embedding_filename(config.data.embedding_type,
                               config.data.embedding_format).removesuffix(".npz")
     device = resolve_device(device)
+    release = None
     if kind == "x_concat":
         from wealy_tpu_torch.cli.extract_batched import make_encoder_embed_fn
 
@@ -340,6 +341,7 @@ def make_query_embed_fn(config, device=None):
 
         decode_fn = make_decoder_embed_fn(config, language=0 if kind.endswith("_en") else None,
                                           device=device)
+        release = decode_fn.release
 
         def embed_fn(chunks):
             hidden, lengths = decode_fn(chunks)
@@ -354,6 +356,7 @@ def make_query_embed_fn(config, device=None):
             out = out.float().cpu().numpy()
         return np.asarray(out, np.float32)
 
+    run.release = release  # None, or frees what the decode keeps on the card between queries
     return run
 
 
@@ -517,8 +520,11 @@ class QueryEngine:
 
     def release(self) -> None:
         """Drop the resident device tensors (before a replacement engine
-        uploads its own)."""
+        uploads its own), and the step graph that an audio query's greedy
+        decode keeps (the next such query captures it again)."""
         self._sets_dev = self._mask_dev = self._scale_dev = None
+        if getattr(self._audio_fn, "release", None) is not None:
+            self._audio_fn.release()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 

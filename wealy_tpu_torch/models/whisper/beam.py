@@ -5,6 +5,9 @@ and ``MaximumLikelihoodRanker`` on the rungs where ``beam_size`` is set.
 - Beams ride the batch axis: every step decodes (B*K) rows at once.
 - Prefill runs at B (the prompt is beam-independent); the caches are then
   repeated K times in beam-major order (row b*K + k is beam k of item b).
+- Each step is the decoder step of ``generate.py``'s greedy loop (the
+  position a device index, self-attention over the whole cache under a
+  mask), so a beam of one is greedy bit for bit.
 - Each step: ``log_softmax`` over the step logits; a finished beam is
   locked to an eot-only continuation at zero cost (its score freezes);
   candidates score ``sum_logprob[b, k] + logp[b, k, v]`` and the top K of
@@ -177,11 +180,13 @@ def beam_decode(
     locked[eot] = 0.0
 
     i = P
+    pos = torch.full((1,), P, dtype=torch.long, device=dev)  # greedy's static-shape step
     while i < max_len - 1 and not bool(finished.all()):
         hid, logits, caches = model.decode(
-            cur_tok, None, kv_caches=caches, cache_index=i, xa_kv=xa_kv,
+            cur_tok, None, kv_caches=caches, cache_index=pos, xa_kv=xa_kv,
             logit_weight=logit_weight,
         )
+        pos.add_(1)
         hidden_buf[:, i] = hid[:, 0]  # pre-reorder slot order
         logp = step_logp(logits[:, -1])  # (BK, V)
         logp = torch.where(finished.reshape(BK, 1), locked, logp)

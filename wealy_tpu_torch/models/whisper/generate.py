@@ -6,11 +6,27 @@ set.
 The extraction path for the decoder-embedding taxonomy (``hs_last_seq`` /
 ``hs_last_all``) transcribes each 30 s chunk greedily and keeps the
 decoder's last hidden state for every position; the long-form ladder
-(:mod:`wealy_tpu_torch.models.whisper.longform`) also samples. The step loop
-is a Python loop that stops as soon as every row has emitted
-<|endoftext|> (one host sync per step); buffers are static (``max_len``)
-so the outputs match the JAX ones. Each step is a ``whisper.decode_step``
-span (``utils/profiling.py``).
+(:mod:`wealy_tpu_torch.models.whisper.longform`) also samples. The prompt
+is one prefill call; then every step is one static-shape step (:func:`_step`,
+the JAX package's maths under ``lax.while_loop``): its position is a device
+scalar that the step advances, the token and the position row are read and
+the new k/v, hidden state and token written by device index, and
+self-attention reads the whole ``max_len`` cache under a -inf mask past
+the position. Buffers are static (``max_len``) so the outputs match the
+JAX ones. The step loop is a Python loop that stops as soon as every row
+has emitted <|endoftext|> (one host sync per step). Each step is a
+``whisper.decode_step`` span (``utils/profiling.py``) whose ``n`` is 1 when
+the step was a CUDA graph replay and 0 when it ran eagerly.
+
+Greedy decodes (temperature 0) on the current CUDA device by a decoder
+without a tensor-parallel context replay the step as one CUDA graph:
+captured on the first call of a signature (batch, ``max_len``, cross-K/V
+shape, storage dtypes, eot, whether a suppress mask is given, and the
+decoder's parameter storage) after a warm-up on a side stream, and kept on
+the model with the buffers it reads, which later calls of the signature
+refill (one graphed decode of a model at a time; :func:`release_step_graph`
+frees them). Elsewhere (the CPU, ``parallel/tp.py::tp_decode_fn``, whose
+collectives stay out of graphs, and sampling) the same step runs eagerly.
 
 Sampling draws from an explicit ``torch.Generator`` on the decode's
 device (Gumbel-max over ``logits / temperature``). It cannot reproduce
@@ -21,6 +37,8 @@ the JAX package's draws. Temperature 0 is exact argmax, as there.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -163,6 +181,164 @@ def nospeech_probability(config: WhisperConfig, logits: torch.Tensor, prompt) ->
     return torch.exp(logp[:, min(config.token_nospeech, logp.shape[-1] - 1)])
 
 
+class _Buffers:
+    """What the static-shape step reads and writes, at fixed addresses:
+    ``tokens`` (B, max_len) int64, ``hidden`` (B, max_len, D), the
+    self-attention ``caches``, the cross K/V ``xa_kv`` and the f32
+    ``logit_weight`` (the embedding rounded to the compute dtype);
+    ``suppress`` (V,) bool or None; ``finished`` (B,) bool, ``sum_logprob``
+    (B,) f32 and ``pos`` (1,) int64, the position of the step's input token.
+    ``xa_kv`` and ``suppress`` are held as given."""
+
+    __slots__ = ("tokens", "hidden", "caches", "xa_kv", "logit_weight", "suppress", "finished",
+                 "sum_logprob", "pos")
+
+    def __init__(self, model: Whisper, config: WhisperConfig, B: int, max_len: int, xa_kv,
+                 self_kv_dtype, suppress):
+        dev = xa_kv[0][0].device
+        self.tokens = torch.empty((B, max_len), dtype=torch.long, device=dev)
+        self.hidden = torch.empty((B, max_len, config.n_text_state), dtype=model.dtype, device=dev)
+        self.caches = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype,
+                                     device=dev, n_head=model.decoder.blocks[0].attn.n_head)
+        self.xa_kv = xa_kv
+        self.logit_weight = model.decoder.rounded_embedding()
+        self.suppress = suppress
+        self.finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.sum_logprob = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def refill(self, model: Whisper, xa_kv, suppress) -> None:
+        """Copy a new call's operands in: the cross K/V (``xa_kv``, in the
+        compute dtype or f32, cast as :func:`decode_cross_kv` casts), the
+        rounded embedding and the suppress mask."""
+        for (dk, dv), (k, v) in zip(self.xa_kv, xa_kv):
+            dk.copy_(k)
+            dv.copy_(v)
+        self.logit_weight.copy_(model.decoder.token_embedding.weight.to(model.dtype))
+        if suppress is not None:
+            self.suppress.copy_(suppress)
+
+    def start(self, prompt: Sequence[int], eot: int) -> None:
+        """Reset for a decode: the prompt, then eot; hidden and caches zero."""
+        self.tokens.fill_(eot)
+        self.tokens[:, : len(prompt)] = torch.tensor(list(prompt), dtype=torch.long,
+                                                     device=self.tokens.device)
+        self.hidden.zero_()
+        for ck, cv in self.caches:
+            ck.zero_()
+            cv.zero_()
+
+
+def _step(model: Whisper, s: _Buffers, eot: int, temperature: float = 0.0,
+          generator: Optional[torch.Generator] = None) -> None:
+    """One decode step at the device position ``s.pos``: the token there
+    through the decoder against the whole cache, its hidden state kept, the
+    next token written after it (eot in finished rows, whose log-probability
+    no longer counts), ``finished`` updated and ``s.pos`` advanced. Static
+    shapes and no host sync, so it can be captured as a CUDA graph."""
+    hid, logits, _ = model.decode(
+        s.tokens.index_select(1, s.pos), None, kv_caches=s.caches, cache_index=s.pos,
+        xa_kv=s.xa_kv, logit_weight=s.logit_weight,
+    )
+    s.hidden.index_copy_(1, s.pos, hid)
+    nxt, logp = choose_tokens(logits[:, -1], temperature, generator, s.suppress)
+    nxt = torch.where(s.finished, eot, nxt)
+    s.sum_logprob.add_(torch.where(s.finished, 0.0, logp))
+    s.tokens.index_copy_(1, s.pos + 1, nxt[:, None])
+    s.finished.logical_or_(nxt == eot)
+    s.pos.add_(1)
+
+
+def _graphable(model: Whisper, dev: torch.device, temperature: float) -> bool:
+    """Whether the step is replayed as a CUDA graph: greedy, on the current
+    CUDA device, by a decoder with no tensor-parallel context (whose
+    collectives stay out of graphs)."""
+    return (temperature == 0.0 and dev.type == "cuda"
+            and dev.index == torch.cuda.current_device()
+            and model.decoder.blocks[0].attn.tp is None)
+
+
+def _capture(model: Whisper, s: _Buffers, eot: int) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of one greedy step over ``s``, captured after two warm-up
+    steps on a side stream (they write position 1; :meth:`_Buffers.start`
+    clears them). Thread-local capture: the feed's threads may use the card
+    meanwhile."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            s.pos.zero_()
+            _step(model, s, eot)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        _step(model, s, eot)
+    return graph
+
+
+class _HeldGraph:
+    """A model's step graph, kept as ``model._greedy_graph``: its ``key``
+    (the signature it was captured for), ``buffers`` and ``graph`` (None
+    until a capture and after :func:`release_step_graph`), and the ``lock``
+    that a graphed decode holds from its refill to the copies it returns,
+    since request threads (the serve daemon's) may share one model."""
+
+    __slots__ = ("lock", "key", "buffers", "graph")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.key = self.buffers = self.graph = None
+
+    def take(self, model: Whisper, config: WhisperConfig, audio_states, prompt, max_len: int,
+             eot: int, xa_kv, cross_kv_dtype, self_kv_dtype, suppress):
+        """(buffers, graph) for this call's signature, its operands copied
+        in: the held ones when the signature is the held one, else captured
+        anew (the old one's memory freed first). The held cross K/V and
+        suppress mask are the graph's own, never a caller's tensors. Call
+        with ``lock`` held."""
+        if xa_kv is None:
+            xa_kv = model.precompute_cross_kv(audio_states)
+        key = (audio_states.shape[0], tuple(xa_kv[0][0].shape), max_len, eot, cross_kv_dtype,
+               self_kv_dtype, suppress is not None,
+               tuple(p.data_ptr() for p in model.decoder.parameters()))
+        if self.key != key:
+            self.key = self.buffers = self.graph = None
+            dev = audio_states.device
+            # plain tensors, not inference ones: the buffers outlive a caller's inference mode
+            with torch.inference_mode(False), torch.no_grad():
+                held_kv = [tuple(torch.empty(t.shape, dtype=cross_kv_dtype or torch.float32,
+                                             device=dev) for t in kv) for kv in xa_kv]
+                s = _Buffers(model, config, audio_states.shape[0], max_len, held_kv,
+                             self_kv_dtype, None if suppress is None else suppress.clone())
+            s.refill(model, xa_kv, suppress)
+            s.start(prompt, eot)  # valid tokens for the warm-up steps
+            self.graph, self.buffers, self.key = _capture(model, s, eot), s, key
+        else:
+            self.buffers.refill(model, xa_kv, suppress)
+        return self.buffers, self.graph
+
+
+_HOLDING = threading.Lock()  # makes each model's _HeldGraph once
+
+
+def _held(model: Whisper) -> _HeldGraph:
+    """``model._greedy_graph``, made on first use."""
+    with _HOLDING:
+        if getattr(model, "_greedy_graph", None) is None:
+            model._greedy_graph = _HeldGraph()
+        return model._greedy_graph
+
+
+def release_step_graph(model: Whisper) -> None:
+    """Free the step graph and the buffers ``model`` holds for
+    :func:`greedy_decode` (after any decode that is replaying it); the next
+    graphed call captures again."""
+    held = getattr(model, "_greedy_graph", None)
+    if held is not None:
+        with held.lock:
+            held.key = held.buffers = held.graph = None
+
+
 @torch.no_grad()
 def greedy_decode(
     model: Whisper,
@@ -189,6 +365,14 @@ def greedy_decode(
     and of the self-attention caches (the opt-in decode-bandwidth modes):
     values are cast into the storage dtype and upcast at every read.
 
+    On a CUDA device at temperature 0 the steps replay one CUDA graph (the
+    module docstring); the returned tensors are copies, not the buffers the
+    next call overwrites. Graphed decodes of one model run one at a time.
+    The graph and its buffers stay on the model until another signature
+    replaces them or :func:`release_step_graph` frees them: at large-v3-turbo
+    width, B=16 and ``max_len`` 224 about 1.3 GB (the f32 cross K/V 983 MB,
+    the f32 logit table 266 MB, the caches and hidden states).
+
     Returns dict with:
       - ``tokens``  (B, max_len) int64 — prompt + generated, eot-padded
       - ``lengths`` (B,) int64 — number of valid positions (incl. prompt)
@@ -198,7 +382,6 @@ def greedy_decode(
         avg_logprob numerator)
       - ``nospeech_prob`` (B,) f32 — p(<|nospeech|>) at the <|sot|> position
     """
-    B = audio_states.shape[0]
     P = len(prompt)
     if not 0 < P < max_len:
         raise ValueError(f"prompt length {P} must be in (0, max_len={max_len})")
@@ -207,51 +390,51 @@ def greedy_decode(
     dev = audio_states.device
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-
-    tokens = torch.full((B, max_len), eot, dtype=torch.long, device=dev)
-    tokens[:, :P] = torch.tensor(list(prompt), dtype=torch.long, device=dev)
-    hidden_buf = torch.zeros((B, max_len, config.n_text_state), dtype=model.dtype, device=dev)
-    caches = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype, device=dev,
-                            n_head=model.decoder.blocks[0].attn.n_head)
     suppress = suppress_mask(config, suppress_tokens, dev)
 
-    # per-step operands made once: the cross-attention K/V and the logit
-    # embedding, rounded to the compute dtype and held in f32
-    xa_kv = decode_cross_kv(model, audio_states, xa_kv, cross_kv_dtype)
-    logit_weight = model.decoder.rounded_embedding()
-    hid, logits, caches = model.decode(
-        tokens[:, :P], None, kv_caches=caches, cache_index=0, xa_kv=xa_kv,
-        logit_weight=logit_weight,
-    )
-    hidden_buf[:, :P] = hid
-    nospeech_prob = nospeech_probability(config, logits, prompt)
+    held = _held(model) if _graphable(model, dev, temperature) else None
+    with contextlib.nullcontext() if held is None else held.lock:
+        if held is None:
+            s, graph = _Buffers(model, config, audio_states.shape[0], max_len,
+                                decode_cross_kv(model, audio_states, xa_kv, cross_kv_dtype),
+                                self_kv_dtype, suppress), None
+        else:
+            s, graph = held.take(model, config, audio_states, prompt, max_len, eot, xa_kv,
+                                 cross_kv_dtype, self_kv_dtype, suppress)
+        s.start(prompt, eot)
 
-    next_tok, sum_logprob = choose_tokens(logits[:, -1], temperature, generator, suppress)
-    tokens[:, P] = next_tok
-    finished = next_tok == eot
+        hid, logits, _ = model.decode(
+            s.tokens[:, :P], None, kv_caches=s.caches, cache_index=0, xa_kv=s.xa_kv,
+            logit_weight=s.logit_weight,
+        )
+        s.hidden[:, :P] = hid
+        nospeech_prob = nospeech_probability(config, logits, prompt)
+        next_tok, logp = choose_tokens(logits[:, -1], temperature, generator, s.suppress)
+        s.tokens[:, P] = next_tok
+        s.finished.copy_(next_tok == eot)
+        s.sum_logprob.copy_(logp)
+        s.pos.fill_(P)
 
-    # each step's span closes after its one host sync (``finished.all()``)
-    i = P
-    running = i < max_len - 1 and not bool(finished.all())
-    while running:
-        with trace_span("whisper.decode_step"):
-            hid, logits, caches = model.decode(
-                tokens[:, i : i + 1], None, kv_caches=caches, cache_index=i, xa_kv=xa_kv,
-                logit_weight=logit_weight,
-            )
-            hidden_buf[:, i] = hid[:, 0]
-            nxt, logp = choose_tokens(logits[:, -1], temperature, generator, suppress)
-            nxt = torch.where(finished, eot, nxt)
-            sum_logprob = sum_logprob + torch.where(finished, 0.0, logp)
-            tokens[:, i + 1] = nxt
-            finished = finished | (nxt == eot)
-            i += 1
-            running = i < max_len - 1 and not bool(finished.all())
+        # each step's span closes after its one host sync (``finished.all()``)
+        i = P
+        running = i < max_len - 1 and not bool(s.finished.all())
+        while running:
+            with trace_span("whisper.decode_step") as span:
+                if graph is None:
+                    _step(model, s, eot, temperature, generator)
+                else:
+                    graph.replay()
+                span.n = int(graph is not None)
+                i += 1
+                running = i < max_len - 1 and not bool(s.finished.all())
 
+        tokens, hidden, sum_logprob = s.tokens, s.hidden, s.sum_logprob
+        if graph is not None:
+            tokens, hidden, sum_logprob = tokens.clone(), hidden.clone(), sum_logprob.clone()
     return {
         "tokens": tokens,
         "lengths": decoded_lengths(tokens, P, eot),
-        "hidden": hidden_buf,
+        "hidden": hidden,
         "sum_logprob": sum_logprob,
         "nospeech_prob": nospeech_prob,
     }

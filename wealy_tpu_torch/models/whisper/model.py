@@ -33,8 +33,13 @@ rank's contiguous shard: K2 at the rank's heads, K3 with the rank's
 columns and a zero ``b2``.
 
 Self-attention KV caches are (B, H, Tmax, Dh) for k (pre-scaled by
-Dh**-0.25) and v, and are updated IN PLACE by ``decode``; attention reads
-only the filled prefix [0, cache_index + T). A cache (or a precomputed
+Dh**-0.25) and v, and are updated IN PLACE by ``decode`` in two ways: the
+prefill (``cache_index=0``, T tokens) writes and reads positions [0, T)
+under a causal mask; the incremental step (a (1,) device ``cache_index``,
+one token: the static-shape step of ``generate.py``) writes its k/v by
+``index_copy_`` and reads all Tmax positions under an additive -inf mask
+past the index, as the JAX model does (``model.py:466-484`` there). A cache
+(or a precomputed
 cross K/V) may be stored in float8 (the opt-in decode-bandwidth modes of
 the JAX model, ``model.py:98-130`` there): new k/v are cast into it from
 the compute dtype, and the attention products upcast at the read.
@@ -76,6 +81,18 @@ def is_float8(dtype) -> bool:
 def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm in f32, cast back to the input dtype."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
+
+
+def _write_cache(cache: torch.Tensor, at, new: torch.Tensor) -> None:
+    """``new`` (B, H, T, Dh) into ``cache`` along time at ``at``: a slice, or
+    a (1,) device index (T = 1). A float8 cache takes the bytes of the cast
+    from the compute dtype (the JAX model's astype)."""
+    if is_float8(cache.dtype):
+        cache, new = cache.view(torch.uint8), new.to(cache.dtype).view(torch.uint8)
+    if torch.is_tensor(at):
+        cache.index_copy_(2, at, new.to(cache.dtype))
+    else:
+        cache[:, :, at] = new
 
 
 def _tp_heads(n_head: int, tp) -> int:
@@ -140,18 +157,13 @@ class MultiHeadAttention(nn.Module):
 
         if kv_cache is not None:
             ck, cv = kv_cache
-            end = cache_index + Tq
-            k_new, v_new = (k * scale).transpose(1, 2), v.transpose(1, 2)
-            if is_float8(ck.dtype):
-                # the cache lives at the storage dtype: the new k/v are cast
-                # from the compute dtype (as the JAX model's astype) and
-                # written as bytes; the products below upcast at the read
-                ck.view(torch.uint8)[:, :, cache_index:end] = k_new.to(ck.dtype).view(torch.uint8)
-                cv.view(torch.uint8)[:, :, cache_index:end] = v_new.to(cv.dtype).view(torch.uint8)
-            else:
-                ck[:, :, cache_index:end] = k_new
-                cv[:, :, cache_index:end] = v_new
-            k, v = ck[:, :, :end], cv[:, :, :end]
+            static = torch.is_tensor(cache_index)
+            at = cache_index if static else slice(0, Tq)
+            _write_cache(ck, at, (k * scale).transpose(1, 2))
+            _write_cache(cv, at, v.transpose(1, 2))
+            # the prefill's positions, or (a device index) the whole cache
+            # under the caller's mask
+            k, v = (ck, cv) if static else (ck[:, :, :Tq], cv[:, :, :Tq])
 
         if kv_cache is not None or xa_kv is not None:
             # decode layout: k (B, H, Tk, Dh) pre-scaled, v (B, H, Tk, Dh),
@@ -271,9 +283,10 @@ class WhisperEncoder(nn.Module):
 class WhisperDecoder(nn.Module):
     """Token ids (B, T) + encoder states -> hidden states (B, T, D) and logits.
 
-    With ``kv_caches``/``cache_index`` set, runs one incremental step
-    (T new tokens at absolute positions cache_index..cache_index+T-1)
-    against the self-attention caches, which it updates in place.
+    With ``kv_caches`` set it updates the self-attention caches in place:
+    ``cache_index=0`` is the prefill (the T prompt tokens at positions
+    0..T-1), a (1,) device ``cache_index`` the incremental step (one token
+    at that position, against the whole cache); no other index is taken.
     """
 
     def __init__(self, config: WhisperConfig, dtype=torch.bfloat16, device=None, tp=None):
@@ -303,27 +316,31 @@ class WhisperDecoder(nn.Module):
         tokens: torch.Tensor,
         audio_states: Optional[torch.Tensor],
         kv_caches=None,
-        cache_index: Optional[int] = None,
+        cache_index=None,
         return_all_hiddens: bool = False,
         xa_kv=None,
         logit_weight: Optional[torch.Tensor] = None,
     ):
         T = tokens.shape[1]
         embed = self.token_embedding.weight
-        offset = 0 if cache_index is None else int(cache_index)
-        x = embed[tokens].to(self.dtype) + self.positional_embedding[offset : offset + T].to(
-            self.dtype
-        )
         dev = tokens.device
-        if kv_caches is None:
-            mask = torch.full((T, T), float("-inf"), device=dev).triu(1)
-        elif T > 1:
-            # query t sits at offset + t and sees cache positions <= that
-            key_pos = torch.arange(offset + T, device=dev)[None, :]
-            q_pos = offset + torch.arange(T, device=dev)[:, None]
-            mask = torch.where(key_pos <= q_pos, 0.0, float("-inf"))
+        if torch.is_tensor(cache_index):
+            # the static-shape step: one token at a (1,) device position,
+            # its row of the table by index, every cache position past it
+            # masked (the JAX model's key_pos <= q_pos over Tmax)
+            if T != 1 or kv_caches is None:
+                raise ValueError("a device cache_index takes one token and the KV caches")
+            pos = self.positional_embedding.index_select(0, cache_index)
+            key_pos = torch.arange(kv_caches[0][0].shape[2], device=dev)
+            mask = torch.where(key_pos <= cache_index, 0.0, float("-inf"))
         else:
-            mask = None  # one new token sees the whole filled prefix
+            # teacher forcing, or the prefill at position 0: causal over T
+            if cache_index not in (None, 0):
+                raise ValueError("an int cache_index is the prefill's 0; a step takes a (1,) "
+                                 "device index")
+            pos = self.positional_embedding[:T]
+            mask = torch.full((T, T), float("-inf"), device=dev).triu(1)
+        x = embed[tokens].to(self.dtype) + pos.to(self.dtype)
 
         all_hiddens = [x]
         for i, block in enumerate(self.blocks):
