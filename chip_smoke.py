@@ -10,7 +10,10 @@ narrowest and widest Whisper width, timed with the bf16 cuBLAS chain,
 phase 5; K4 bit-equal on every route, at the evaluate block, the serving
 blocks and tiles beyond 128 chunks, phase 9; the attention
 backward K5a/K5b against autograd of the plain attention, and on rows whose
-softmax is nearly one-hot against f32 autograd, phase 12), drives
+softmax is nearly one-hot against f32 autograd, phase 12; the decode
+attention kernel at the greedy step's cross and cache shapes, timed beside
+SDPA's backends, alone and as a step's eight calls in one CUDA graph,
+phase 27), drives
 extract_song at whisper-tiny (card against CPU) and at large-v3-turbo full
 width (random weights from a seed), times the whisper-tiny embedding
 pipeline, drives ``python -m wealy_tpu_torch.cli.main evaluate`` on a
@@ -106,6 +109,8 @@ FAILURES: list[str] = []
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the kernels of the extraction path (phases 6-7); K4 runs on the evaluate path (phase 10)
 EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp")
+# the kernel of the decoder's step (phases 6, 7, 21 and 23 decode)
+DECODE_KERNELS = ("decode_attention",)
 # K2's lse against logsumexp of the plain f32 scores: the kernel's exp2/log2
 # and running max against torch's exp/log, in f32
 LSE_RTOL, LSE_ATOL = 1e-4, 1e-4
@@ -419,6 +424,9 @@ def main() -> int:
     del q, k, v, qt, kt, vt, got, lse
     torch.cuda.empty_cache()
 
+    # 27. the decode attention kernel against its plain version and SDPA
+    decode_attention_phase(dev, gen, smi, record, fmt_bound)
+
     # 5. K3 MLP against _reference_mlp (bf16 operands, f32 biases) at the
     # narrowest and the widest Whisper width; timed in turns (plain, kernel,
     # library, kernel, plain) with the bf16 cuBLAS chain F.linear -> F.gelu
@@ -718,7 +726,8 @@ def main() -> int:
     hcos_prefix = min_row_cos(dc["hidden"][0, :limit].cpu(), dp["hidden"][0, :limit])
     check(hcos_prompt >= 0.999, f"tiny decoder prompt states cosine {hcos_prompt:.6f}")
     check(hcos_prefix >= 0.999, f"tiny decoder common-prefix states cosine {hcos_prefix:.6f}")
-    check(all(tiny_counts[k] > 0 for k in EXTRACT_KERNELS), f"tiny slice launches {tiny_counts}")
+    check(all(tiny_counts[k] > 0 for k in (*EXTRACT_KERNELS, *DECODE_KERNELS)),
+          f"tiny slice launches {tiny_counts}")
     say(f"[6 tiny slice] x_concat {card['x_concat'].shape} cos {xcos:.6f}; hs_last_seq card "
         f"{card['hs_last_seq'].shape} cpu {cpu['hs_last_seq'].shape}; tokens agree on "
         f"{prefix}/64 positions, state cos prompt {hcos_prompt:.6f} first {limit} {hcos_prefix:.6f}; "
@@ -746,7 +755,8 @@ def main() -> int:
         check(out["hs_last_seq"].ndim == 2 and out["hs_last_seq"].shape[1] == 1280,
               f"turbo hs_last_seq shape {out['hs_last_seq'].shape}")
         check(all(np.isfinite(v).all() for v in out.values()), "turbo outputs not finite")
-    check(all(turbo_counts[k] > 0 for k in EXTRACT_KERNELS), f"turbo launches {turbo_counts}")
+    check(all(turbo_counts[k] > 0 for k in (*EXTRACT_KERNELS, *DECODE_KERNELS)),
+          f"turbo launches {turbo_counts}")
     say(f"[7 turbo slice] 2 songs x 3 chunks: x_concat {[o['x_concat'].shape for o in outs]} "
         f"hs_last_seq {[o['hs_last_seq'].shape for o in outs]}; {6 / turbo_s:.2f} clips/s "
         f"({turbo_s:.2f} s, max_len 64); peak {peak_gb:.2f} GB; launches {turbo_counts}")
@@ -814,7 +824,7 @@ def main() -> int:
         check(audio_launches[name] > 0, f"phase 20 launched {name} {audio_launches[name]} times")
     for name in ("log_mel", "flash_mha", "fused_mlp", "bpwr_redux"):
         check(fusion_launches[name] > 0, f"phase 22 launched {name} {fusion_launches[name]} times")
-    for name in EXTRACT_KERNELS:
+    for name in (*EXTRACT_KERNELS, *DECODE_KERNELS):
         check(transcribe_launches[name] > 0,
               f"phase 23 launched {name} {transcribe_launches[name]} times")
     for name in (*EXTRACT_KERNELS, "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "bpwr_redux"):
@@ -835,18 +845,135 @@ def main() -> int:
     return 0
 
 
+def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
+    """27. The decode attention kernel against _reference_decode_attention at
+    the greedy step's shapes (large-v3-turbo, B=16): the held cross K/V
+    (headline) and the 224-position self cache up to a device position
+    (112, the mean position of a full decode; then 0 and 223, checked
+    only); timed in turns with SDPA on the same bf16 K/V (q pre-scaled, the
+    cache's positions as a boolean mask), each backend that takes the call;
+    then a step's eight calls (four layers' cross and cache, each layer its
+    own K/V) replayed as one CUDA graph, the kernel's against the fastest
+    backend's of each shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from wealy_tpu_torch.ops import bf16_agreement
+    from wealy_tpu_torch.ops import decode_attention as da
+
+    takes = {SDPBackend.FLASH_ATTENTION: torch.backends.cuda.can_use_flash_attention,
+             SDPBackend.EFFICIENT_ATTENTION: torch.backends.cuda.can_use_efficient_attention,
+             SDPBackend.CUDNN_ATTENTION: torch.backends.cuda.can_use_cudnn_attention}
+    scale = 64 ** -0.25
+
+    def sdpa_fns(q, k, v, pos):
+        """{backend: fn} of the SDPA backends that take the call, and each
+        one's agreement with the plain version (bf16_agreement's bool)."""
+        qs = (q * scale).to(q.dtype).transpose(1, 2)
+        mask = None if pos is None else (torch.arange(k.shape[2], device=dev) <= pos)[None, None]
+        want = da._reference_decode_attention(q, k, v, scale, None if pos is None else
+                                              da.position_mask(pos, k.shape[2]))
+        params = torch.backends.cuda.SDPAParams(qs, k, v, mask, 0.0, False, False)
+        fns, agree = {}, {}
+        for backend, can_use in takes.items():
+            if not can_use(params, False):
+                continue
+
+            def fn(backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(qs, k, v, attn_mask=mask, scale=1.0)
+
+            name = backend.name.lower()
+            fns[name], agree[name] = fn, bf16_agreement(fn().transpose(1, 2), want)[0]
+        return fns, agree
+
+    def graph_ms(calls, iters: int = 50) -> float:
+        """Device ms of one replay of a CUDA graph of ``calls``, after a
+        warm-up on a side stream."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for fn in calls:
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for fn in calls:
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    B, H = 16, 20
+    step_calls = {}
+    for case, (tk, at) in {"cross": (1500, None), "cache": (224, 112)}.items():
+        sets = [tuple(torch.randn(s, device=dev, generator=gen).bfloat16() for s in (
+            (B, 1, H, 64), (B, H, tk, 64), (B, H, tk, 64))) for _ in range(4)]
+        q, k, v = sets[0]
+        err, cos = 0.0, 1.0
+        for p in ((at, 0, tk - 1) if at is not None else (None,)):
+            pos = None if p is None else torch.tensor([p], device=dev)
+            got = da.decode_attention(q, k, v, scale, pos)
+            want = da._reference_decode_attention(
+                q, k, v, scale, None if pos is None else da.position_mask(pos, tk))
+            ok, e, c = bf16_agreement(got, want)
+            check(ok, f"decode_attention {case} pos {p}: cos {c:.6f} max abs {e:.3g}")
+            err, cos = max(err, e), min(cos, c)
+        pos = None if at is None else torch.tensor([at], device=dev)
+        mask = None if pos is None else da.position_mask(pos, tk)
+        lib, lib_ok = sdpa_fns(q, k, v, pos)
+        med = turns_ms({"kernel": lambda: da.decode_attention(q, k, v, scale, pos),
+                        "plain": lambda: da._reference_decode_attention(q, k, v, scale, mask),
+                        **lib},
+                       ("plain", "kernel", *lib, "kernel", "plain"), 3,
+                       {"kernel": 50, "plain": 10, **{n: 50 for n in lib}})
+        fastest = min(lib, key=med.get) if lib else None
+        n_read = tk if at is None else at + 1
+        bnd = bound(2 * B * H * n_read * 64 * 2 + 2 * B * H * 64 * 2, 4 * B * H * n_read * 64,
+                    "f32")
+        step_calls[case] = (
+            [lambda s=s_, pos=pos: da.decode_attention(s[0], s[1], s[2], scale, pos)
+             for s_ in sets],
+            [] if fastest is None else [sdpa_fns(*s_, pos)[0][fastest] for s_ in sets])
+        say(f"[27 decode_attention] {case} B={B} H={H} Tk={tk}"
+            + ("" if at is None else f" pos {at}") + f" bf16: max_abs_err {err:.3g} min_cos "
+            f"{cos:.6f}; medians of 3 rounds of turns: kernel {med['kernel']:.4f} ms "
+            f"({100 * bnd[0] / med['kernel']:.1f}% of the bound), plain {med['plain']:.4f} ms"
+            + fmt_bound(bnd, med[fastest] if fastest else None,
+                        f"SDPA ({fastest})" if fastest else "SDPA")
+            + "; SDPA " + ", ".join(f"{n} {med[n]:.4f} ms (agrees {lib_ok[n]})" for n in lib))
+        record("decode_attention", "wealy_tpu_torch/csrc/decode_attention.cu",
+               "wealy_tpu/models/whisper/model.py:148 (XLA, no kernel)", err, med["kernel"],
+               med["plain"], f"{case} B={B} H={H} Tk={tk}" + ("" if at is None else f" pos {at}"),
+               bnd, med[fastest] if fastest else None)
+    kernel_step = graph_ms([fn for case in step_calls for fn in step_calls[case][0]])
+    lib_calls = [fn for case in step_calls for fn in step_calls[case][1]]
+    lib_step = graph_ms(lib_calls) if len(lib_calls) == 8 else None
+    say(f"[27 decode_attention] a step's 8 calls (4 layers x cross + cache, own K/V) as one "
+        f"CUDA graph: kernel {kernel_step:.4f} ms, fastest SDPA backends "
+        + (f"{lib_step:.4f} ms" if lib_step is not None else "not measured") + f" | {smi}")
+    torch.cuda.empty_cache()
+
+
 def launch_counters():
     """(reset, read) of every kernel wrapper's launch count, by kernel name."""
     from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
     from wealy_tpu_torch.ops import layer_norm as tln
     from wealy_tpu_torch.ops.bpwr_redux import bpwr_block_redux
+    from wealy_tpu_torch.ops.decode_attention import decode_attention
     from wealy_tpu_torch.ops.flash_attention import flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq
     from wealy_tpu_torch.ops.fused_mlp import fused_mlp
 
     counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
                 "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
                 "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux,
-                "layer_norm": tln.fused_layer_norm}
+                "layer_norm": tln.fused_layer_norm, "decode_attention": decode_attention}
 
     def reset_counts():
         for fn in counters.values():
@@ -1985,7 +2112,7 @@ def extract_split_phase(tmp: str, dev, reset_counts, counts, smi: str,
     check(packed["versions_packed"] == n, f"phase 21 pack {packed}")
     check(all(math.isfinite(ev[k]) for k in ("MAP", "MR1")) and ev["n_queries"] == n,
           f"phase 21 evaluate {ev}")
-    check(all(launched[k] > 0 for k in (*EXTRACT_KERNELS, "bpwr_redux")),
+    check(all(launched[k] > 0 for k in (*EXTRACT_KERNELS, *DECODE_KERNELS, "bpwr_redux")),
           f"phase 21 launches {launched}")
 
     store = EmbeddingStore(hs, "lyric-covers")

@@ -200,10 +200,11 @@ def test_threads_decode_one_model_at_once(dev, monkeypatch):
 
 
 def test_the_callers_cross_kv_is_not_held(dev, monkeypatch):
-    """The caller's own f32 cross K/V (the long-form ladder's ``xa_kv``),
-    made under ``torch.inference_mode()``: decoding A, B, then A again
-    outside it gives A's result, the caller's tensors stay as they were,
-    and ``release_step_graph`` frees the graph (the next call captures)."""
+    """The caller's own cross K/V, an f32 copy of the model's (cast into the
+    held bf16, where it is exact), made under ``torch.inference_mode()``: decoding
+    A, B, then A again outside it gives A's result, the caller's tensors
+    stay as they were, and ``release_step_graph`` frees the graph (the next
+    call captures)."""
     model = _model(dev)
     xs = [_states(dev, 16, seed=1), _states(dev, 16, seed=2)]
     with torch.inference_mode():
@@ -214,6 +215,7 @@ def test_the_callers_cross_kv_is_not_held(dev, monkeypatch):
     second, _ = _decode(model, xs[1], xa_kv=kvs[1])
     third, ns = _decode(model, xs[0], xa_kv=kvs[0])
     assert set(ns) == {1}
+    assert {t.dtype for kv in model._greedy_graph.buffers.xa_kv for t in kv} == {torch.bfloat16}
     _same(first, _decode(model, xs[0], eager=True, monkeypatch=monkeypatch)[0])
     _same(second, _decode(model, xs[1], eager=True, monkeypatch=monkeypatch)[0])
     for key in first:

@@ -112,6 +112,13 @@ def test_every_kernel_has_a_source_note():
         assert "What bounds it on an H100" in head, name
 
 
+def test_the_decode_attention_kernel_has_a_source_note():
+    """The one kernel with no TPU counterpart says so, and why it was added."""
+    head = (PKG / "csrc" / "decode_attention.cu").read_text()[:3000]
+    assert "Replaces no TPU kernel" in head and "It was added" in head
+    assert "What bounds it on an H100" in head
+
+
 def _code(name: str) -> str:
     """A kernel source without its comments."""
     src = (PKG / "csrc" / name).read_text()
@@ -280,11 +287,12 @@ def test_build_flags_and_source_hash():
     assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     names = {p.name for p in _build.sources()}
     assert {"log_mel.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused_mlp.cu",
-            "bpwr_redux.cu", "layer_norm.cu", "common.cuh", "hopper.cuh"} <= names
+            "bpwr_redux.cu", "layer_norm.cu", "decode_attention.cu", "common.cuh",
+            "hopper.cuh"} <= names
     assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd",
                                       "wealy_flash_mha_bwd_dq", "wealy_flash_mha_bwd_dkv",
                                       "wealy_fused_mlp", "wealy_bpwr_redux", "wealy_bpwr_route",
-                                      "wealy_layer_norm"}
+                                      "wealy_layer_norm", "wealy_decode_attention"}
     assert "-shared" not in _build.NVCC_FLAGS  # one object per source, linked after
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()

@@ -17,7 +17,7 @@ from wealy_tpu.models.whisper.generate import init_kv_caches as j_init_kv_caches
 from wealy_tpu_torch.cli.extract import load_whisper_model
 from wealy_tpu_torch.models.whisper import WHISPER_CONFIGS, load_openai_state_dict
 from wealy_tpu_torch.models.whisper import state_dict_from_hf, state_dict_from_jax_params
-from wealy_tpu_torch.models.whisper.generate import greedy_decode, init_kv_caches
+from wealy_tpu_torch.models.whisper.generate import decode_cross_kv, greedy_decode, init_kv_caches
 from wealy_tpu_torch.models.whisper.model import Whisper
 
 from _torch_parity import jax_and_port_whisper, min_row_cosine, to_numpy
@@ -127,16 +127,21 @@ def test_greedy_decode_f32_matches_jax(f32_pair, mel, suppress):
 
 
 def test_hoisted_decode_operands_change_nothing(mel):
-    """greedy_decode makes the f32 cross K/V and the rounded logit embedding
-    once per call; a bf16 step given them equals one that makes its own."""
+    """greedy_decode makes the cross K/V (held in the compute dtype) and the
+    logit table (the embedding in the compute dtype) once per call; a bf16
+    step given them, or their f32 upcasts, equals one that makes its own."""
     port = Whisper(CFG, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(5))
     outs = []
     with torch.no_grad():
         states = port.eval().encode(torch.from_numpy(mel))
         xa_kv = port.precompute_cross_kv(states)
-        hoisted = dict(xa_kv=[(k.float(), v.float()) for k, v in xa_kv],
-                       logit_weight=port.decoder.rounded_embedding())
-        for kw in (dict(xa_kv=xa_kv), hoisted):
+        hoisted = dict(xa_kv=decode_cross_kv(port, states),
+                       logit_weight=port.decoder.logit_table())
+        upcast = dict(xa_kv=[(k.float(), v.float()) for k, v in xa_kv],
+                      logit_weight=port.decoder.logit_table().float())
+        assert {t.dtype for kv in hoisted["xa_kv"] for t in kv} == {torch.bfloat16}
+        assert hoisted["logit_weight"].dtype == torch.bfloat16
+        for kw in (dict(xa_kv=xa_kv), hoisted, upcast):
             caches = init_kv_caches(CFG, 2, 8, dtype=torch.bfloat16)
             for start, stop in ((0, 3), (3, 4)):
                 h, logits, caches = port.decode(
@@ -144,8 +149,9 @@ def test_hoisted_decode_operands_change_nothing(mel):
                     kv_caches=caches, cache_index=torch.tensor([start]) if start else 0, **kw,
                 )
             outs.append((h, logits))
-    assert torch.equal(outs[0][0], outs[1][0])
-    assert torch.equal(outs[0][1], outs[1][1])
+    for h, logits in outs[1:]:
+        assert torch.equal(outs[0][0], h)
+        assert torch.equal(outs[0][1], logits)
 
 
 def test_scanned_jax_layout_converts():

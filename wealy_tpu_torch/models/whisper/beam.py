@@ -143,7 +143,7 @@ def beam_decode(
 
     # ---- prefill at B -----------------------------------------------------------------------
     xa_kv = decode_cross_kv(model, audio_states, xa_kv, cross_kv_dtype)
-    logit_weight = model.decoder.rounded_embedding()
+    logit_weight = model.decoder.logit_table()
     prompt_t = torch.tensor(list(prompt), dtype=torch.long, device=dev)
     caches_b = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype, device=dev)
     hid, logits, caches_b = model.decode(

@@ -45,6 +45,7 @@ import torch
 
 from wealy_tpu_torch.models.whisper.config import WhisperConfig
 from wealy_tpu_torch.models.whisper.model import Whisper
+from wealy_tpu_torch.ops.decode_attention import decode_attention
 from wealy_tpu_torch.utils.profiling import trace_span
 
 
@@ -138,15 +139,16 @@ def suppress_mask(config: WhisperConfig, suppress_tokens, device) -> Optional[to
 
 
 def decode_cross_kv(model: Whisper, audio_states, xa_kv=None, cross_kv_dtype=None):
-    """The per-step cross-attention K/V of a decode: ``xa_kv`` (or the
-    model's from ``audio_states``) stored at ``cross_kv_dtype`` when it is
-    given (float8: cast from the compute dtype, upcast at every read), else
-    held in f32, made once (the step multiplies in f32 anyway)."""
+    """The per-step cross-attention K/V of a decode, made once: ``xa_kv``
+    (or the model's from ``audio_states``) held in ``cross_kv_dtype`` when
+    it is given (float8: upcast at every read), else in the compute dtype,
+    in which the model makes them (a caller's K/V in another dtype is cast
+    into it: an f32 copy of the model's own is exact there), contiguous in
+    the decode layout."""
     if xa_kv is None:
         xa_kv = model.precompute_cross_kv(audio_states)
-    if cross_kv_dtype is not None:
-        return [(k.to(cross_kv_dtype), v.to(cross_kv_dtype)) for k, v in xa_kv]
-    return [(k.float(), v.float()) for k, v in xa_kv]
+    dtype = cross_kv_dtype or model.dtype
+    return [(k.to(dtype).contiguous(), v.to(dtype).contiguous()) for k, v in xa_kv]
 
 
 def choose_tokens(logits: torch.Tensor, temperature: float = 0.0,
@@ -184,14 +186,17 @@ def nospeech_probability(config: WhisperConfig, logits: torch.Tensor, prompt) ->
 class _Buffers:
     """What the static-shape step reads and writes, at fixed addresses:
     ``tokens`` (B, max_len) int64, ``hidden`` (B, max_len, D), the
-    self-attention ``caches``, the cross K/V ``xa_kv`` and the f32
-    ``logit_weight`` (the embedding rounded to the compute dtype);
+    self-attention ``caches``, the cross K/V ``xa_kv`` and the
+    ``logit_weight`` (the embedding in the compute dtype,
+    :meth:`~wealy_tpu_torch.models.whisper.model.WhisperDecoder.logit_table`);
     ``suppress`` (V,) bool or None; ``finished`` (B,) bool, ``sum_logprob``
-    (B,) f32 and ``pos`` (1,) int64, the position of the step's input token.
-    ``xa_kv`` and ``suppress`` are held as given."""
+    (B,) f32 and ``pos`` (1,) int64, the position of the step's input token;
+    ``launches``, the decode attention calls a replay of the captured step
+    runs (0 until :func:`_capture`). ``xa_kv`` and ``suppress`` are held as
+    given."""
 
     __slots__ = ("tokens", "hidden", "caches", "xa_kv", "logit_weight", "suppress", "finished",
-                 "sum_logprob", "pos")
+                 "sum_logprob", "pos", "launches")
 
     def __init__(self, model: Whisper, config: WhisperConfig, B: int, max_len: int, xa_kv,
                  self_kv_dtype, suppress):
@@ -201,16 +206,17 @@ class _Buffers:
         self.caches = init_kv_caches(config, B, max_len, dtype=self_kv_dtype or model.dtype,
                                      device=dev, n_head=model.decoder.blocks[0].attn.n_head)
         self.xa_kv = xa_kv
-        self.logit_weight = model.decoder.rounded_embedding()
+        self.logit_weight = model.decoder.logit_table()
         self.suppress = suppress
         self.finished = torch.zeros(B, dtype=torch.bool, device=dev)
         self.sum_logprob = torch.zeros(B, dtype=torch.float32, device=dev)
         self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+        self.launches = 0
 
     def refill(self, model: Whisper, xa_kv, suppress) -> None:
-        """Copy a new call's operands in: the cross K/V (``xa_kv``, in the
-        compute dtype or f32, cast as :func:`decode_cross_kv` casts), the
-        rounded embedding and the suppress mask."""
+        """Copy a new call's operands in: the cross K/V (``xa_kv``, cast
+        into the held dtype as :func:`decode_cross_kv` casts), the logit
+        table and the suppress mask."""
         for (dk, dv), (k, v) in zip(self.xa_kv, xa_kv):
             dk.copy_(k)
             dv.copy_(v)
@@ -261,7 +267,9 @@ def _graphable(model: Whisper, dev: torch.device, temperature: float) -> bool:
 def _capture(model: Whisper, s: _Buffers, eot: int) -> torch.cuda.CUDAGraph:
     """A CUDA graph of one greedy step over ``s``, captured after two warm-up
     steps on a side stream (they write position 1; :meth:`_Buffers.start`
-    clears them). Thread-local capture: the feed's threads may use the card
+    clears them); ``s.launches`` is set to the decode attention calls a
+    replay runs (the capture itself runs none, so their count is left as it
+    was). Thread-local capture: the feed's threads may use the card
     meanwhile."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -271,8 +279,10 @@ def _capture(model: Whisper, s: _Buffers, eot: int) -> torch.cuda.CUDAGraph:
             _step(model, s, eot)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    before = decode_attention.launches
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         _step(model, s, eot)
+    s.launches, decode_attention.launches = decode_attention.launches - before, before
     return graph
 
 
@@ -298,7 +308,8 @@ class _HeldGraph:
         with ``lock`` held."""
         if xa_kv is None:
             xa_kv = model.precompute_cross_kv(audio_states)
-        key = (audio_states.shape[0], tuple(xa_kv[0][0].shape), max_len, eot, cross_kv_dtype,
+        kv_dtype = cross_kv_dtype or model.dtype
+        key = (audio_states.shape[0], tuple(xa_kv[0][0].shape), max_len, eot, kv_dtype,
                self_kv_dtype, suppress is not None,
                tuple(p.data_ptr() for p in model.decoder.parameters()))
         if self.key != key:
@@ -306,8 +317,8 @@ class _HeldGraph:
             dev = audio_states.device
             # plain tensors, not inference ones: the buffers outlive a caller's inference mode
             with torch.inference_mode(False), torch.no_grad():
-                held_kv = [tuple(torch.empty(t.shape, dtype=cross_kv_dtype or torch.float32,
-                                             device=dev) for t in kv) for kv in xa_kv]
+                held_kv = [tuple(torch.empty(t.shape, dtype=kv_dtype, device=dev) for t in kv)
+                           for kv in xa_kv]
                 s = _Buffers(model, config, audio_states.shape[0], max_len, held_kv,
                              self_kv_dtype, None if suppress is None else suppress.clone())
             s.refill(model, xa_kv, suppress)
@@ -364,14 +375,15 @@ def greedy_decode(
     ``cross_kv_dtype`` / ``self_kv_dtype``: float8 storage of the cross K/V
     and of the self-attention caches (the opt-in decode-bandwidth modes):
     values are cast into the storage dtype and upcast at every read.
+    Otherwise both are held in the compute dtype (:func:`decode_cross_kv`).
 
     On a CUDA device at temperature 0 the steps replay one CUDA graph (the
     module docstring); the returned tensors are copies, not the buffers the
     next call overwrites. Graphed decodes of one model run one at a time.
     The graph and its buffers stay on the model until another signature
     replaces them or :func:`release_step_graph` frees them: at large-v3-turbo
-    width, B=16 and ``max_len`` 224 about 1.3 GB (the f32 cross K/V 983 MB,
-    the f32 logit table 266 MB, the caches and hidden states).
+    width, B=16 and ``max_len`` 224 about 0.66 GB (the bf16 cross K/V 492 MB,
+    the bf16 logit table 133 MB, the caches and hidden states).
 
     Returns dict with:
       - ``tokens``  (B, max_len) int64 — prompt + generated, eot-padded
@@ -424,6 +436,7 @@ def greedy_decode(
                     _step(model, s, eot, temperature, generator)
                 else:
                     graph.replay()
+                    decode_attention.launches += s.launches
                 span.n = int(graph is not None)
                 i += 1
                 running = i < max_len - 1 and not bool(s.finished.all())

@@ -128,8 +128,9 @@ def transcribe_longform(
     for c in range(n_chunks):
         states = audio_states[c : c + 1]
         # the cross-attention K/V depend only on the audio: made once a
-        # chunk, in f32 as the decode holds them, shared by every rung
-        chunk_xa_kv = [(k.float(), v.float()) for k, v in model.precompute_cross_kv(states)]
+        # chunk, in the compute dtype as the decode holds them, shared by
+        # every rung
+        chunk_xa_kv = model.precompute_cross_kv(states)
         n_ctx = _ctx_bucket(len(context))
         ctx_tail = context[-n_ctx:] if n_ctx else []
         prompt = (([config.token_startofprev] + ctx_tail) if ctx_tail else []) + base_prompt

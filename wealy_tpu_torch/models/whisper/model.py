@@ -19,9 +19,18 @@ JAX model:
   MLP biases added in the compute dtype as in the JAX non-fused branch.
 - Incremental decode computes logits from operands rounded to the compute
   dtype, multiplied in f32 (keep TF32 off); teacher-forced logits are f32.
-  A decode loop passes the rounded embedding as ``logit_weight``, made once
-  (:meth:`WhisperDecoder.rounded_embedding`), instead of rounding it every
-  step.
+  A decode loop passes the embedding in the compute dtype as
+  ``logit_weight``, made once (:meth:`WhisperDecoder.logit_table`), instead
+  of rounding it every step; on the card that product is one bf16 x bf16
+  product with f32 accumulation and f32 output (:func:`step_logits`).
+- The incremental step's attention (one token, the decode layout) goes on
+  the card to the decode attention kernel (``ops/decode_attention.py``),
+  which reads the K/V in their storage dtype with the plain path's
+  roundings. The route is chosen by dtype and head width alone
+  (``ops/decode_attention.py::takes``): a bf16 model's step over bf16 or
+  float8 e4m3 K/V always takes the kernel, which raises on a layout it
+  cannot read; float8 e5m2 storage, f32-compute models, head widths other
+  than 64, the prefill, teacher forcing and the CPU take the plain path.
 
 Tensor parallelism (``parallel/tp.py``): built with a ``tp`` context, an
 attention module holds ``n_head / n`` heads of the ``n`` ranks of the
@@ -38,11 +47,12 @@ prefill (``cache_index=0``, T tokens) writes and reads positions [0, T)
 under a causal mask; the incremental step (a (1,) device ``cache_index``,
 one token: the static-shape step of ``generate.py``) writes its k/v by
 ``index_copy_`` and reads all Tmax positions under an additive -inf mask
-past the index, as the JAX model does (``model.py:466-484`` there). A cache
-(or a precomputed
-cross K/V) may be stored in float8 (the opt-in decode-bandwidth modes of
-the JAX model, ``model.py:98-130`` there): new k/v are cast into it from
-the compute dtype, and the attention products upcast at the read.
+past the index, as the JAX model does (``model.py:466-484`` there; the
+decode attention kernel reads positions [0, index] alone). A cache (or a
+precomputed cross K/V) may be stored in float8 (the opt-in decode-bandwidth
+modes of the JAX model, ``model.py:98-130`` there): new k/v are cast into it
+from the compute dtype, and the attention upcasts at the read (the kernel
+takes float8 e4m3 in registers; e5m2 takes the plain path).
 """
 
 from __future__ import annotations
@@ -55,6 +65,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from wealy_tpu_torch.models.whisper.config import WhisperConfig
+from wealy_tpu_torch.ops.decode_attention import (
+    _reference_decode_attention,
+    decode_attention,
+    position_mask,
+    takes,
+)
 from wealy_tpu_torch.ops.flash_attention import flash_mha
 from wealy_tpu_torch.ops.fused_mlp import fused_mlp
 
@@ -100,6 +116,20 @@ def _tp_heads(n_head: int, tp) -> int:
     if n_head % n:
         raise ValueError(f"{n_head} heads do not split over {n} model ranks")
     return n_head // n
+
+
+def step_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 logits of states ``x`` (..., D) in the compute dtype against the
+    logit table (V, D) (:meth:`WhisperDecoder.logit_table`): the product of
+    the rounded operands with f32 accumulation and f32 output, one bf16
+    product on the card and an upcast elsewhere (the same values). On the
+    card the table is the left operand: the (V, rows) output's leading
+    dimension is the row count, which cuBLAS aligns (a vocabulary of 51866
+    columns does not), then transposed into place."""
+    if x.is_cuda and table.dtype != torch.float32:
+        flat = torch.mm(table, x.reshape(-1, x.shape[-1]).T, out_dtype=torch.float32)
+        return flat.T.contiguous().view(*x.shape[:-1], table.shape[0])
+    return x.float() @ table.float().T
 
 
 class MultiHeadAttention(nn.Module):
@@ -166,14 +196,17 @@ class MultiHeadAttention(nn.Module):
             k, v = (ck, cv) if static else (ck[:, :, :Tq], cv[:, :, :Tq])
 
         if kv_cache is not None or xa_kv is not None:
-            # decode layout: k (B, H, Tk, Dh) pre-scaled, v (B, H, Tk, Dh),
-            # float8 storage (cross K/V or the self cache) upcast here
-            qt = (q * scale).transpose(1, 2)
-            logits = qt.float() @ k.float().transpose(-1, -2)
-            if mask is not None:
-                logits = logits + mask
-            w = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = (w.float() @ v.float()).transpose(1, 2)
+            # decode layout: k (B, H, Tk, Dh) pre-scaled, v (B, H, Tk, Dh) in
+            # their storage dtype. One token (a step against the held cross
+            # K/V, or against the cache at a device position, whose mask is
+            # the position's) goes to the decode attention kernel when its
+            # dtypes and head width are the kernel's (the module docstring)
+            pos = cache_index if kv_cache is not None else None
+            step = Tq == 1 and (static if kv_cache is not None else mask is None)
+            if step and takes(q, k):
+                out = decode_attention(q, k, v, scale, pos)
+            else:
+                out = _reference_decode_attention(q, k, v, scale, mask)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), (k * scale).float())
             if mask is not None:
@@ -306,10 +339,10 @@ class WhisperDecoder(nn.Module):
         )
         self.ln = nn.LayerNorm(D, eps=1e-5, device=device)
 
-    def rounded_embedding(self) -> torch.Tensor:
-        """The token embedding rounded to the compute dtype, in f32: the
-        right operand of every incremental step's logits."""
-        return self.token_embedding.weight.to(self.dtype).float()
+    def logit_table(self) -> torch.Tensor:
+        """The token embedding in the compute dtype: the table of every
+        incremental step's logits (:func:`step_logits`)."""
+        return self.token_embedding.weight.to(self.dtype)
 
     def forward(
         self,
@@ -331,8 +364,7 @@ class WhisperDecoder(nn.Module):
             if T != 1 or kv_caches is None:
                 raise ValueError("a device cache_index takes one token and the KV caches")
             pos = self.positional_embedding.index_select(0, cache_index)
-            key_pos = torch.arange(kv_caches[0][0].shape[2], device=dev)
-            mask = torch.where(key_pos <= cache_index, 0.0, float("-inf"))
+            mask = position_mask(cache_index, kv_caches[0][0].shape[2])
         else:
             # teacher forcing, or the prefill at position 0: causal over T
             if cache_index not in (None, 0):
@@ -359,8 +391,8 @@ class WhisperDecoder(nn.Module):
                          self.ln.eps)
         if kv_caches is not None:
             if logit_weight is None:
-                logit_weight = self.rounded_embedding()
-            logits = x.to(self.dtype).float() @ logit_weight.T
+                logit_weight = self.logit_table()
+            logits = step_logits(x.to(self.dtype), logit_weight)
         else:
             logits = x @ embed.T
         hidden = x.to(self.dtype)

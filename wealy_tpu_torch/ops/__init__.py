@@ -1,6 +1,7 @@
 """The numeric ops of the port: the kernels' wrappers (``log_mel`` lives in
 ``audio/``; here fused attention K2 with its backward K5a/K5b, the fused MLP
-K3, LayerNorm K6, the chunk-set scorer K4) and the plain torch equivalents of
+K3, LayerNorm K6, the chunk-set scorer K4, and the decoder step's decode
+attention, which has no TPU counterpart) and the plain torch equivalents of
 the reference's lib/tensor_ops.py, exported here as ``wealy_tpu.ops``
 exports them. Mask convention of the masked ops: True = excluded (the
 layers' opposite convention converts through ``utils/masks.py``). Below,
