@@ -56,8 +56,11 @@ copy and ``Tensor.copy_`` of the same bytes; at (64, 1500, 384) bf16 also
 the probe of the first K6 (one warp a row): as it was, with constant
 weights, and as a copy of the same grid and bytes (the probe builds into
 ``--out``); then this
-checkout's block route at (16384, 4096) bf16 and (4096, 8192) f32. It
-prints one JSON line.
+checkout's block route at (16384, 4096) bf16 and (4096, 8192) f32, and
+its fused entry (the residual add with the LayerNorm of its sum) at (32,
+1500, 1280) and (16, 1500, 1280) bf16, cold, against its 8-bytes-an-element
+bound and, in turns, the unfused add, upcast, ``F.layer_norm`` and
+downcast on the same rows. It prints one JSON line.
 
     python3 chip_profile.py --memory [--package-root DIR]
 
@@ -618,6 +621,51 @@ def time_layer_norm(package_root, probe_dir: Path) -> list:
         rows.append(row)
         print(f"[K6] {row}", flush=True)
         del x, y, fns, nxt
+        torch.cuda.empty_cache()
+    if hasattr(change, "fused_add_layer_norm"):
+        rows += time_add_layer_norm(change, gen)
+    return rows
+
+
+# the fused entry at the x cells' batches of turbo's residual stream
+K6_ADD_SHAPES = ((32, 1500, 1280), (16, 1500, 1280))
+
+
+def time_add_layer_norm(change, gen) -> list:
+    """K6's fused entry (a residual add and the LayerNorm of its sum) at
+    K6_ADD_SHAPES in bf16, cold, against its bound (x and y read, s and h
+    written: 8 bytes an element) and, in turns, the unfused route it
+    replaces on the same rows: ``x + y`` then an f32 upcast, ``F.layer_norm``
+    and a downcast."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    rows = []
+    for shape in K6_ADD_SHAPES:
+        D = shape[-1]
+        x, y = ((torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).bfloat16()
+                for _ in range(2))
+        scale = torch.randn(D, device=dev, generator=gen) + 1
+        bias = torch.randn(D, device=dev, generator=gen)
+        nx, copies = cs.cold_inputs(x)
+        ny, _ = cs.cold_inputs(y)
+        fns = {"fused": lambda: change.fused_add_layer_norm(nx(), ny(), scale, bias),
+               "add, then upcast F.layer_norm": lambda: F.layer_norm(
+                   (nx() + ny()).float(), (D,), scale, bias, 1e-5).bfloat16()}
+        order = ["fused", "add, then upcast F.layer_norm"]
+        med = cs.turns_ms(fns, order + order[::-1], 5, {name: 20 for name in fns})
+        bnd = cs.bound(4 * x.numel() * x.element_size() + 2 * D * 4, 9 * x.numel(), "f32")
+        row = {"kernel": "K6 fused add", "shape": list(shape), "dtype": "bfloat16",
+               "ms": med["fused"], "library": "add, then upcast F.layer_norm and downcast",
+               "library_ms": med["add, then upcast F.layer_norm"],
+               "ratio": med["fused"] / med["add, then upcast F.layer_norm"], "bound_ms": bnd[0],
+               "bound_by": bnd[1], "bound_share": bnd[0] / med["fused"],
+               "inputs": f"cold, {copies} copies"}
+        rows.append(row)
+        print(f"[K6 fused add] {row}", flush=True)
+        del x, y, fns, nx, ny
         torch.cuda.empty_cache()
     return rows
 

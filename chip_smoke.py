@@ -25,7 +25,9 @@ large-v3-turbo encoder + ProjectionHead(512) fine-tuned at full width and
 depth (phase 14), and ``train`` then ``evaluate --checkpoint`` through the
 CLI on the synthetic project (phase 15). Then K6 (LayerNorm) against its
 plain version, timed on inputs beyond the L2 cache beside ``F.layer_norm``
-on the same bytes, and LayerNormFused's gradients and every route of a row
+on the same bytes, its fused entry (a residual add with the LayerNorm of
+its sum) against its plain pair beside the unfused add and
+``F.layer_norm``, and LayerNormFused's gradients and every route of a row
 1 to 8192 wide (phase 16), and serving: the
 ``index``/``query`` CLI on the phase-10 project, card against CPU and every
 engine mode (phase 17), an exact-scan engine over a 10,547-version index
@@ -108,7 +110,7 @@ import torch.nn.functional as F
 FAILURES: list[str] = []
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the kernels of the extraction path (phases 6-7); K4 runs on the evaluate path (phase 10)
-EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp")
+EXTRACT_KERNELS = ("log_mel", "flash_mha", "fused_mlp", "layer_norm", "layer_norm_add")
 # the kernel of the decoder's step (phases 6, 7, 21 and 23 decode)
 DECODE_KERNELS = ("decode_attention",)
 # K2's lse against logsumexp of the plain f32 scores: the kernel's exp2/log2
@@ -124,6 +126,9 @@ L2_BYTES = 50e6  # an H100's L2 cache
 # activations, turbo width, a ragged row count, and f32
 K6_SHAPES = (((64, 1500, 384), torch.bfloat16), ((8, 1500, 1280), torch.bfloat16),
              ((4507, 1280), torch.bfloat16), ((3, 70, 384), torch.float32))
+# the fused entry's shapes in phase 16 (the headline first): turbo's residual
+# stream at the x cells' B=32 and the hs cell's B=16, and medium's at B=32
+K6_ADD_SHAPES = ((32, 1500, 1280), (16, 1500, 1280), (32, 1500, 1024))
 
 
 def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
@@ -676,6 +681,7 @@ def main() -> int:
         del nxt
     del x, got, want
     torch.cuda.empty_cache()
+    layer_norm_add_phase(dev, gen, record, fmt_bound)
 
     reset_counts, counts = launch_counters()
 
@@ -845,6 +851,52 @@ def main() -> int:
     return 0
 
 
+def layer_norm_add_phase(dev, gen, record, fmt_bound) -> None:
+    """16 (the fused entry). K6's fused entry at K6_ADD_SHAPES in bf16: s
+    equal to x + y, h against ``_reference_add_ln`` within ``BF16_TOL``;
+    timed in turns with the plain pair and the unfused route it replaces
+    (the add, then ``F.layer_norm`` on the f32 upcast and a downcast), each
+    launch on the next of copies of x and y; its bound 8 bytes an
+    element."""
+    from wealy_tpu_torch.ops import layer_norm as tln
+
+    for shape in K6_ADD_SHAPES:
+        D = shape[-1]
+        x, y = ((torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).bfloat16()
+                for _ in range(2))
+        scale = torch.randn(D, device=dev, generator=gen) + 1
+        bias = torch.randn(D, device=dev, generator=gen)
+        (s, got), (_, want) = (tln.fused_add_layer_norm(x, y, scale, bias),
+                               tln._reference_add_ln(x, y, scale, bias, 1e-5))
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(s, x + y)
+        ok = check(same and torch.allclose(got.float(), want.float(), rtol=tln.BF16_TOL,
+                                           atol=tln.BF16_TOL),
+                   f"K6 fused add {shape}: s equal to x + y {same}, h max abs {err:.3g} "
+                   f"outside rtol/atol {tln.BF16_TOL}")
+        nx, copies = cold_inputs(x)
+        ny, _ = cold_inputs(y)
+        med = turns_ms({"kernel": lambda: tln.fused_add_layer_norm(nx(), ny(), scale, bias),
+                        "plain": lambda: tln._reference_add_ln(nx(), ny(), scale, bias, 1e-5),
+                        "library": lambda: F.layer_norm((nx() + ny()).float(), (D,), scale,
+                                                        bias, 1e-5).bfloat16()},
+                       ("plain", "kernel", "library", "kernel", "plain"), 3,
+                       {"kernel": 20, "plain": 5, "library": 20})
+        bnd = bound(4 * x.numel() * x.element_size() + 2 * D * 4, 9 * x.numel(), "f32")
+        say(f"[16 K6 fused add] {shape} bfloat16: s equal to x + y {same}, h max_abs_err "
+            f"{err:.3g} {'ok' if ok else 'FAIL'}; cold ({copies} copies of x and of y), medians "
+            f"of 3 rounds of turns: kernel {med['kernel']:.4f} ms "
+            f"({100 * bnd[0] / med['kernel']:.1f}% of the bound), plain {med['plain']:.4f} ms"
+            + fmt_bound(bnd, med["library"], "the add, then F.layer_norm on the f32 upcast")
+            + f" (ratio {med['kernel'] / med['library']:.3f})")
+        record("layer_norm_add", "wealy_tpu_torch/csrc/layer_norm.cu",
+               "wealy_tpu/models/whisper/model.py:228,237 (x + attn, mlp_ln)", err, med["kernel"],
+               med["plain"], f"{shape} torch.bfloat16", bnd, med["library"])
+        del nx, ny
+    del x, y, s, got, want
+    torch.cuda.empty_cache()
+
+
 def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
     """27. The decode attention kernel against _reference_decode_attention at
     the greedy step's shapes (large-v3-turbo, B=16): the held cross K/V
@@ -973,7 +1025,8 @@ def launch_counters():
     counters = {"log_mel": log_mel_spectrogram_fused, "flash_mha": flash_mha,
                 "flash_mha_bwd_dq": flash_mha_bwd_dq, "flash_mha_bwd_dkv": flash_mha_bwd_dkv,
                 "fused_mlp": fused_mlp, "bpwr_redux": bpwr_block_redux,
-                "layer_norm": tln.fused_layer_norm, "decode_attention": decode_attention}
+                "layer_norm": tln.fused_layer_norm, "layer_norm_add": tln.fused_add_layer_norm,
+                "decode_attention": decode_attention}
 
     def reset_counts():
         for fn in counters.values():
@@ -2946,10 +2999,13 @@ def free_port() -> int:
 
 
 def layer_outputs(encoder, mel) -> tuple:
-    """(the encoder's output, every block's output) as f32, by forward hooks."""
+    """(the encoder's output, every block's output stream) as f32, by forward
+    hooks (a block of ``models/whisper/model.py`` returns the stream and the
+    next LayerNorm's input; the int8 encoder's block the stream)."""
     outs = []
-    hooks = [b.register_forward_hook(lambda m, i, o: outs.append(o.float()))
-             for b in encoder.blocks]
+    hooks = [b.register_forward_hook(
+        lambda m, i, o: outs.append((o[0] if isinstance(o, tuple) else o).float()))
+        for b in encoder.blocks]
     with torch.no_grad():
         final = encoder(mel).float()
     for h in hooks:

@@ -25,6 +25,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -555,6 +557,168 @@ def test_layer_norm_kernel_misaligned_view_and_module_grads(dev):
     (tln._reference_ln(*leaves, 1e-5) * r).sum().backward()
     for got, want in zip((x.grad, mod.scale.grad, mod.bias.grad), leaves):
         torch.testing.assert_close(got, want.grad, rtol=1e-5, atol=1e-6)
+
+
+def _ln_rows(dev, g, n: int, D: int, dtype, aligned: bool) -> torch.Tensor:
+    """(n, D) rows, or the same one element past a 16-byte boundary."""
+    flat = (torch.randn(n * D + 1, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    return flat[:-1].view(n, D) if aligned else flat[1:].view(n, D)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("rows", [16, 48_000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [384, 1024, 1280, 383])
+def test_fused_add_layer_norm_kernel(dev, D, dtype, rows, aligned):
+    """K6's fused entry: s equals PyTorch's x + y on the card bit for bit,
+    h is within K6's bounds of _reference_ln(x + y), a repeat is bit-equal;
+    one launch a call. The widths of both configurations, an odd one, the
+    x cells' 48,000 rows, and rows off a 16-byte boundary."""
+    g = torch.Generator(device=dev).manual_seed(D + rows)
+    x, y = (_ln_rows(dev, g, rows, D, dtype, aligned) for _ in range(2))
+    scale = torch.randn(D, device=dev, generator=g) + 1
+    bias = torch.randn(D, device=dev, generator=g)
+    before = tln.fused_layer_norm.launches
+    s, h = tln.fused_add_layer_norm(x, y, scale, bias)
+    s2, h2 = tln.fused_add_layer_norm(x, y, scale, bias)
+    assert tln.fused_layer_norm.launches == before + 2
+    assert s.dtype == h.dtype == dtype and s.shape == h.shape == (rows, D)
+    assert torch.equal(s, x + y)
+    assert torch.equal(s, s2) and torch.equal(h, h2), "a repeat differs"
+    tol = tln.F32_TOL if dtype == torch.float32 else tln.BF16_TOL
+    torch.testing.assert_close(h.float(), tln._reference_ln(x + y, scale, bias, 1e-5).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_fused_add_layer_norm_gradients_and_graph(dev):
+    """The fused entry's gradients in x, y, scale and bias (a loss reading
+    both outputs) against autograd of the plain pair; and the entry under
+    CUDA graph capture: a replay on new inputs equals an eager call."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    x, y, rs, rh = (torch.randn(4, 33, 1280, device=dev, generator=g) for _ in range(4))
+    scale = torch.randn(1280, device=dev, generator=g) + 1
+    bias = torch.randn(1280, device=dev, generator=g)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, y, scale, bias)]
+        s, h = fn(*leaves)
+        ((s * rs).sum() + (h * rh).sum()).backward()
+        return [leaf.grad for leaf in leaves]
+
+    got = grads(lambda *a: tln.fused_add_layer_norm(*a))
+    want = grads(lambda x, y, s, b: (x + y, tln._reference_ln(x + y, s, b, 1e-5)))
+    for gt, w in zip(got, want):
+        torch.testing.assert_close(gt, w, rtol=1e-5, atol=1e-5)
+
+    xb, yb = (torch.randn(32, 1500, 1280, device=dev, generator=g).bfloat16() for _ in range(2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tln.fused_add_layer_norm(xb, yb, scale, bias)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s, h = tln.fused_add_layer_norm(xb, yb, scale, bias)
+    for _ in range(2):
+        xb.copy_(torch.randn(xb.shape, device=dev, generator=g))
+        yb.copy_(torch.randn(yb.shape, device=dev, generator=g))
+        graph.replay()
+        want_s, want_h = tln.fused_add_layer_norm(xb, yb, scale, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(s, want_s) and torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("entry", ["plain", "fused_add"])
+def test_k6_gradients_on_the_card(dev, entry):
+    """Each K6 entry's backward on the card (f32 and bf16 rows at turbo
+    width) equals autograd of the function it differentiates exactly: the
+    plain entry's ``_reference_ln`` (the JAX backward), the fused entry's
+    ``_aten_add_ln`` (ATen's fused LayerNorm backward); and, in f32, the
+    plain pair's autograd within the fused entry's gradient test's bound."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    fns = {"plain": (lambda x, y, s, b: tln.fused_layer_norm(x, s, b),
+                     lambda x, y, s, b: tln._reference_ln(x, s, b, 1e-5),
+                     lambda x, y, s, b: tln._reference_ln(x, s, b, 1e-5)),
+           "fused_add": (lambda x, y, s, b: tln.fused_add_layer_norm(x, y, s, b),
+                         lambda x, y, s, b: tln._aten_add_ln(x, y, s, b, 1e-5),
+                         lambda x, y, s, b: tln._reference_add_ln(x, y, s, b, 1e-5))}[entry]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = (torch.randn(4, 33, 1280, device=dev, generator=g).to(dtype) for _ in range(2))
+        reads = [torch.randn(4, 33, 1280, device=dev, generator=g) for _ in range(2)]
+        scale = torch.randn(1280, device=dev, generator=g) + 1
+        bias = torch.randn(1280, device=dev, generator=g)
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (x, y, scale, bias)]
+            outs = fn(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            sum((o.float() * r).sum() for o, r in zip(outs, reads)).backward()
+            return [leaf.grad for leaf in leaves]
+
+        before = tln.fused_layer_norm.launches
+        got, same, plain = (grads(fn) for fn in fns)
+        assert tln.fused_layer_norm.launches == before + 1
+        for gt, a, w in zip(got, same, plain):
+            assert (gt is None) == (a is None) == (w is None)
+            if gt is not None:
+                torch.testing.assert_close(gt, a, rtol=0, atol=0)
+                if dtype == torch.float32:
+                    torch.testing.assert_close(gt, w, rtol=1e-5, atol=1e-5)
+
+
+def test_whisper_blocks_take_k6_on_the_card(dev, monkeypatch):
+    """At turbo width (two blocks a stack, T = 1500): an encoder forward
+    launches K6 2 * n_layer + 1 times and ``F.layer_norm`` never (nor does
+    the decoder), and its ``whisper.encoder_ln`` span reads 1; the encoder
+    states, the teacher-forced hidden states and logits and a cached
+    prefill and step agree with the route off K6 (``takes`` refused:
+    ``F.layer_norm`` in f32, span 0) within the bf16 bounds."""
+    from wealy_tpu_torch.models.whisper import model as tmodel
+    from wealy_tpu_torch.models.whisper.config import WhisperConfig
+    from wealy_tpu_torch.models.whisper.generate import init_kv_caches
+    from wealy_tpu_torch.utils import profiling
+
+    cfg = WhisperConfig(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
+                        n_audio_layer=2, n_vocab=1000, n_text_ctx=448, n_text_state=1280,
+                        n_text_head=20, n_text_layer=2)
+    model = Whisper(cfg, dtype=torch.bfloat16, device=dev)
+    model.init_weights(torch.Generator().manual_seed(3)).eval()
+    g = torch.Generator(device=dev).manual_seed(4)
+    mel = torch.randn(2, 128, 3000, device=dev, generator=g) * 0.5
+    tokens = torch.randint(0, 1000, (2, 5), device=dev, generator=g)
+    library = []
+    real = torch.nn.functional.layer_norm
+    monkeypatch.setattr(torch.nn.functional, "layer_norm",
+                        lambda *a, **k: library.append(1) or real(*a, **k))
+
+    def run():
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            before = tln.fused_layer_norm.launches
+            states = model.encode(mel)
+            torch.cuda.synchronize()
+            launched = tln.fused_layer_norm.launches - before
+            spans = [e.n for e in profiling.spans(since=t0) if e.name == "whisper.encoder_ln"]
+            hidden, logits = model.decode(tokens, states)
+            caches = init_kv_caches(cfg, 2, 8, dtype=torch.bfloat16, device=dev)
+            xa_kv = model.precompute_cross_kv(states)
+            cached = []
+            for start, stop in ((0, 3), (3, 4)):
+                h, lg, caches = model.decode(
+                    tokens[:, start:stop], None, kv_caches=caches,
+                    cache_index=torch.tensor([start], device=dev) if start else 0, xa_kv=xa_kv)
+                cached += [h, lg]
+        return [states, hidden, logits, *cached], launched, spans
+
+    got, launched, spans = run()
+    assert launched == 2 * cfg.n_audio_layer + 1 and spans == [1] and not library
+    monkeypatch.setattr(tmodel, "k6_takes", lambda x: False)
+    want, plain_launched, plain_spans = run()
+    assert plain_launched == 0 and plain_spans == [0] and library
+    for name, gt, w in zip(("states", "hidden", "logits", "prefill hidden", "prefill logits",
+                            "step hidden", "step logits"), got, want):
+        ok, err, cos = bf16_agreement(gt, w)
+        assert gt.dtype == w.dtype and ok, f"{name}: max abs {err:.3g}, min row cosine {cos:.6f}"
 
 
 def test_resident_serving_matches_host_on_card(dev, tmp_path):

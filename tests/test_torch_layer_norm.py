@@ -190,3 +190,125 @@ def test_launch_plan_splits_the_repo_widths_evenly():
     assert tln.launch_plan(2048, True, True) == (tln.BLOCK, 8, 256, 1)
     assert tln.launch_plan(8192, False, True) == (tln.BLOCK, 4, 256, 8)
     assert tln.launch_plan(tln.MAX_D, False, False) == (tln.BLOCK, 1, 256, 128)
+
+
+# K6's fused entry (fused_add_layer_norm): the residual add and the LayerNorm
+# that reads its sum. On the CPU it is its plain version; the card cases are
+# in tests/test_torch_cuda.py (no JAX there).
+
+
+# 16 rows at every width and dtype; 48,000 rows (the x cells' B=32 x 1500)
+# at the narrowest width, within a test worker's host memory (the card cases
+# in tests/test_torch_cuda.py take 48,000 rows at every width)
+FUSED_CASES = [(dtype, D, 16) for dtype in ("bfloat16", "float32") for D in (384, 1024, 1280, 383)]
+FUSED_CASES += [("bfloat16", 384, 48_000)]
+
+
+@pytest.mark.parametrize("dtype,D,rows", FUSED_CASES)
+def test_fused_add_plain_version_matches_jax(dtype, D, rows):
+    """(s, h) against the JAX model's ``x + y`` in the compute dtype and its
+    LayerNorm of that sum (the Pallas kernel in interpret mode at 16 rows,
+    the XLA reference beyond): s equal, h within the JAX tests' bounds."""
+    x, scale, bias = _inputs((rows, D), seed=D)
+    y = np.random.default_rng(D + 1).normal(size=(rows, D)).astype(np.float32)
+    tx, ty = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, y))
+    s, h = tln.fused_add_layer_norm(tx, ty, torch.from_numpy(scale), torch.from_numpy(bias), EPS)
+    assert s.dtype == h.dtype == tx.dtype and s.shape == h.shape == (rows, D)
+    jx, jy = (jnp.asarray(t.float().numpy()).astype(dtype) for t in (tx, ty))  # the same values
+    js = jx + jy
+    if rows == 16:
+        with pltpu.force_tpu_interpret_mode():
+            jh = jln._ln_fwd_impl(js, jnp.asarray(scale), jnp.asarray(bias), EPS)
+    else:
+        jh = jln._reference_ln(js, jnp.asarray(scale), jnp.asarray(bias), EPS)
+    np.testing.assert_array_equal(s.float().numpy(), np.asarray(js, np.float32))
+    tol = tln.BF16_TOL if dtype == "bfloat16" else tln.F32_TOL
+    np.testing.assert_allclose(h.float().numpy(), np.asarray(jh, np.float32), rtol=tol, atol=tol)
+    # the plain pair, exactly
+    want = tln._reference_ln(tx + ty, torch.from_numpy(scale), torch.from_numpy(bias), EPS)
+    assert torch.equal(s, tx + ty) and torch.equal(h, want)
+
+
+def test_fused_add_kernel_route_gives_plain_gradients(monkeypatch):
+    """The fused entry's autograd Function with its launch routed to the
+    plain version on the CPU (returning tensors without a graph, as the
+    kernel does): the gradients in x, y, scale and bias of a loss that
+    reads both outputs equal autograd of the same pair through ATen's f32
+    LayerNorm (what the backward differentiates), and autograd of the
+    plain pair within the JAX gradient test's bounds; one launch a call,
+    with or without a gradient."""
+    x, scale, bias = _inputs((6, 48), seed=7)
+    y = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+    rng = np.random.default_rng(9)
+    rs, rh = (torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) for _ in range(2))
+
+    def grads(fn):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (x, y, scale, bias)]
+        s, h = fn(*leaves)
+        ((s * rs).sum() + (h * rh).sum()).backward()
+        return (s.detach(), h.detach()), [leaf.grad for leaf in leaves]
+
+    def plain(x, y, scale, bias):
+        return x + y, tln._reference_ln(x + y, scale, bias, EPS)
+
+    want_out, want = grads(plain)
+    _, aten = grads(lambda *a: tln._aten_add_ln(*a, EPS))
+    calls = []
+
+    def launch(x, y, scale, bias, eps):
+        calls.append(x.shape)
+        return tuple(t.detach() for t in tln._reference_add_ln(x, y, scale, bias, eps))
+
+    monkeypatch.setattr(tln, "_kernel_route", lambda t: True)
+    monkeypatch.setattr(tln, "_launch_add_ln", launch)
+    got_out, got = grads(lambda *a: tln.fused_add_layer_norm(*a, EPS))
+    assert calls == [(6, 48)]
+    for g, w in zip(got_out, want_out):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for g, a, w in zip(got, aten, want):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    # the gradient of an output the loss does not read is zero, not missing
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, y, scale, bias)]
+    tln.fused_add_layer_norm(*leaves, EPS)[1].sum().backward()
+    assert all(leaf.grad is not None for leaf in leaves)
+    with torch.no_grad():
+        tln.fused_add_layer_norm(*(torch.from_numpy(a) for a in (x, y, scale, bias)))
+    assert len(calls) == 3
+
+
+def test_fused_add_refuses_what_the_kernel_does_not_take():
+    """On a device other than the CPU the fused entry launches K6 or raises:
+    x outside bf16 and f32, y of another shape, dtype or device, weights of
+    another width or dtype, rows wider than MAX_D; nothing launches."""
+    before = tln.fused_layer_norm.launches
+    x = torch.zeros(4, 64, device="meta")
+    s = torch.ones(64, device="meta")
+    wide = tln.MAX_D + 1
+    for args in ((x.half(), x.half(), s, s), (x, x[:, :32], s, s), (x, x.bfloat16(), s, s),
+                 (x, torch.zeros(4, 64), s, s), (x, x, s[:32], s), (x, x, s.bfloat16(), s),
+                 (torch.zeros(2, wide, device="meta"), torch.zeros(2, wide, device="meta"),
+                  torch.ones(wide, device="meta"), torch.ones(wide, device="meta"))):
+        with pytest.raises(ValueError, match=f"fused_add_layer_norm.*D <= {tln.MAX_D}"):
+            tln.fused_add_layer_norm(*args)
+    assert tln.fused_layer_norm.launches == before
+
+
+def test_k6_takes_bf16_and_f32_card_rows():
+    """The route the Whisper blocks choose from the input alone: the CPU
+    and other devices take the plain version; on a card (its device faked
+    here) the dtype and the width decide."""
+    assert not tln.takes(torch.zeros(2, 64)) and not tln.takes(torch.zeros(2, 64, device="meta"))
+
+    class Card:
+        device = torch.device("cuda")
+
+        def __init__(self, dtype, D):
+            self.dtype, self.shape = dtype, (3, D)
+
+        def dim(self):
+            return 2
+
+    assert tln.takes(Card(torch.bfloat16, 1280)) and tln.takes(Card(torch.float32, 384))
+    assert not tln.takes(Card(torch.float16, 1280))
+    assert not tln.takes(Card(torch.bfloat16, tln.MAX_D + 1))

@@ -292,7 +292,8 @@ def test_build_flags_and_source_hash():
     assert set(_build.SIGNATURES) == {"wealy_log_mel", "wealy_flash_mha_fwd",
                                       "wealy_flash_mha_bwd_dq", "wealy_flash_mha_bwd_dkv",
                                       "wealy_fused_mlp", "wealy_bpwr_redux", "wealy_bpwr_route",
-                                      "wealy_layer_norm", "wealy_decode_attention"}
+                                      "wealy_layer_norm", "wealy_add_layer_norm",
+                                      "wealy_decode_attention"}
     assert "-shared" not in _build.NVCC_FLAGS  # one object per source, linked after
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()

@@ -189,7 +189,8 @@ def test_a_profiled_span_is_in_the_trace_once_with_the_rings_duration(tmp_path):
 
 
 EXPECTED = {"audio.load", "extract.next_batch", "extract.pad", "extract.h2d", "whisper.encode",
-            "extract.batch", "extract.d2h", "extract.scatter", "whisper.load"}
+            "whisper.encoder_ln", "extract.batch", "extract.d2h", "extract.scatter",
+            "whisper.load"}
 DECODE = {"whisper.decode_step"}
 
 

@@ -3,6 +3,7 @@ against the JAX package: one seeded JAX init, carried into the port by
 state_dict_from_jax_params, the same numpy inputs through both."""
 
 import dataclasses
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -261,3 +262,89 @@ def test_configs_identical_to_jax():
             J_CONFIGS[name].sot, J_CONFIGS[name].eot,
             J_CONFIGS[name].token_no_timestamps, J_CONFIGS[name].token_nospeech,
         )
+
+
+def test_encoder_stream_is_row_major(mel):
+    """The stem writes the (B, T, D) stream row-major (not the transposed
+    view of the conv's (B, D, T) output), and each block keeps it so."""
+    from wealy_tpu_torch.models.whisper.model import _ln
+
+    for dtype in (torch.float32, torch.bfloat16):
+        enc = Whisper(CFG, dtype=dtype).init_weights(torch.Generator().manual_seed(4)).encoder
+        with torch.no_grad():
+            x = enc.stem(torch.from_numpy(mel))
+            assert x.shape == (2, CFG.n_audio_ctx, 64) and x.is_contiguous(), x.stride()
+            for block in enc.blocks:
+                x, h = block(x, h=_ln(block.attn_ln, x), next_ln=enc.ln_post)
+                assert x.is_contiguous() and h.is_contiguous(), (x.stride(), h.stride())
+
+
+def _k6_route_on_cpu(monkeypatch, launches: list):
+    """The Whisper blocks' K6 route taken on the CPU: ``takes`` says yes and
+    each of K6's two launches runs the model's route off K6 (tensors
+    without a graph, as the kernel returns) and counts, as the kernel
+    does."""
+    from wealy_tpu_torch.models.whisper import model as tmodel
+    from wealy_tpu_torch.ops import layer_norm as tln
+
+    def launch_ln(x, scale, bias, eps):
+        launches.append("ln")
+        tln.fused_layer_norm.launches += 1
+        return tln._aten_ln(x, scale, bias, eps).detach()
+
+    def launch_add_ln(x, y, scale, bias, eps):
+        launches.append("add_ln")
+        tln.fused_layer_norm.launches += 1
+        return tuple(t.detach() for t in tln._aten_add_ln(x, y, scale, bias, eps))
+
+    monkeypatch.setattr(tmodel, "k6_takes", lambda x: True)
+    monkeypatch.setattr(tln, "_kernel_route", lambda t: True)
+    monkeypatch.setattr(tln, "_launch_ln", launch_ln)
+    monkeypatch.setattr(tln, "_launch_add_ln", launch_add_ln)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k6_route_gives_the_plain_numbers(monkeypatch, mel, dtype):
+    """Through the K6 route (its launches run the route off K6 here) the
+    encoder states, the teacher-forced hidden states and logits and the
+    cached prefill and step equal the route off K6 exactly: each LayerNorm
+    reads the same sum; the encoder makes 2 * n_layer + 1 K6 passes (the
+    first attn_ln alone, every residual add fused) and its
+    ``whisper.encoder_ln`` span reads 1 (0 off K6); the decoder 3 * n_layer
+    + 1."""
+    from wealy_tpu_torch.utils import profiling
+
+    port = Whisper(CFG, dtype=dtype).init_weights(torch.Generator().manual_seed(6)).eval()
+    tokens = torch.from_numpy(TOKENS).long()
+
+    def run():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            states = port.encode(torch.from_numpy(mel))
+            spans = [e.n for e in profiling.spans(since=t0) if e.name == "whisper.encoder_ln"]
+            taught = port.decode(tokens, states, return_all_hiddens=True)
+            caches = init_kv_caches(CFG, 2, 8, dtype=dtype)
+            xa_kv = port.precompute_cross_kv(states)
+            cached = []
+            for start, stop in ((0, 3), (3, 4)):
+                h, logits, caches = port.decode(
+                    tokens[:, start:stop], None, kv_caches=caches,
+                    cache_index=torch.tensor([start]) if start else 0, xa_kv=xa_kv)
+                cached += [h, logits]
+        return [states, *taught, *cached], spans
+
+    want, plain_spans = run()
+    launches = []
+    _k6_route_on_cpu(monkeypatch, launches)
+    got, k6_spans = run()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    L = CFG.n_audio_layer
+    assert plain_spans == [0] and k6_spans == [1]
+    encoder = launches[: 2 * L + 1]
+    assert encoder == ["ln"] + ["add_ln"] * 2 * L
+    # teacher forcing: the final LayerNorm alone, in f32; prefill and step:
+    # fused with the last residual add
+    M = CFG.n_text_layer
+    assert launches[2 * L + 1:] == (["ln"] + ["add_ln"] * (3 * M - 1) + ["ln"]
+                                    + (["ln"] + ["add_ln"] * 3 * M) * 2)

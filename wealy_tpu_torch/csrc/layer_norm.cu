@@ -34,6 +34,15 @@
 //   variance and the output; the two sums are block reductions in a fixed
 //   order.
 //
+// The fused entry (wealy_add_layer_norm) adds a second input, the addend,
+// to x first: the sum, in f32 and rounded once to x's dtype (PyTorch's
+// x + addend), is written out as the new residual stream (sums) and is the
+// row the LayerNorm reads. Each route then carries one more input stream
+// and one more output stream (the addend loaded beside x, the sums stored
+// before the row's reductions), at 8 bytes an element in bf16 against the
+// plain entry's 4: a Whisper block's residual add and the LayerNorm that
+// reads its sum in one pass.
+//
 // A width that no even split covers, or a pointer off a 16-byte boundary,
 // takes the same routes with one element per access (vec = 1), the last
 // accesses of a row guarded. The TPU wrapper pads the rows to ROW_BLOCK =
@@ -53,7 +62,8 @@ constexpr int kMaxD = 32768;         // the block route's widest row: 128 KB of 
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 // Access<T, EPV>: EPV consecutive values of one access: a streaming load of
-// the raw bits, their f32 values, and a streaming store of f32 values
+// the raw bits, their f32 values, f32 values rounded into raw bits (pack),
+// and streaming stores of raw bits (put) or of f32 values (store)
 template <typename T, int EPV>
 struct Access;
 
@@ -62,7 +72,9 @@ struct Access<float, 1> {
   using Raw = float;
   __device__ static Raw load(const float* p) { return __ldcs(p); }
   __device__ static void unpack(const Raw& r, float* f) { f[0] = r; }
-  __device__ static void store(float* p, const float* f) { __stcs(p, f[0]); }
+  __device__ static Raw pack(const float* f) { return f[0]; }
+  __device__ static void put(float* p, const Raw& r) { __stcs(p, r); }
+  __device__ static void store(float* p, const float* f) { put(p, pack(f)); }
 };
 
 template <>
@@ -74,9 +86,13 @@ struct Access<bf16, 1> {
   __device__ static void unpack(const Raw& r, float* f) {
     f[0] = __uint_as_float(static_cast<unsigned>(r) << 16);
   }
-  __device__ static void store(bf16* p, const float* f) {
-    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(f[0])));
+  __device__ static Raw pack(const float* f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f[0]));
   }
+  __device__ static void put(bf16* p, const Raw& r) {
+    __stcs(reinterpret_cast<unsigned short*>(p), r);
+  }
+  __device__ static void store(bf16* p, const float* f) { put(p, pack(f)); }
 };
 
 template <>
@@ -89,9 +105,9 @@ struct Access<float, 4> {
     f[2] = r.z;
     f[3] = r.w;
   }
-  __device__ static void store(float* p, const float* f) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
-  }
+  __device__ static Raw pack(const float* f) { return make_float4(f[0], f[1], f[2], f[3]); }
+  __device__ static void put(float* p, const Raw& r) { __stcs(reinterpret_cast<float4*>(p), r); }
+  __device__ static void store(float* p, const float* f) { put(p, pack(f)); }
 };
 
 template <>
@@ -106,16 +122,31 @@ struct Access<bf16, 8> {
       f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
   }
-  __device__ static void store(bf16* p, const float* f) {
+  __device__ static Raw pack(const float* f) {
     unsigned w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
       w[k] = *reinterpret_cast<const unsigned*>(&h);
     }
-    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
+  __device__ static void put(bf16* p, const Raw& r) { __stcs(reinterpret_cast<uint4*>(p), r); }
+  __device__ static void store(bf16* p, const float* f) { put(p, pack(f)); }
 };
+
+// r <- r + q: EPV sums in f32, each rounded once to T (PyTorch's x + addend)
+template <typename T, int EPV>
+__device__ inline void add_into(typename Access<T, EPV>::Raw& r,
+                                const typename Access<T, EPV>::Raw& q) {
+  using A = Access<T, EPV>;
+  float a[EPV], b[EPV];
+  A::unpack(r, a);
+  A::unpack(q, b);
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) a[e] += b[e];
+  r = A::pack(a);
+}
 
 // EPV values of scale or bias from column c (16-byte loads where EPV >= 4:
 // the plan gives vec > 1 only to 16-byte-aligned weights)
@@ -145,12 +176,14 @@ __device__ inline float row_sum(float v, int lanes) {
 
 // Row route: warp w walks row groups w, w + stride, ...; lane l works on
 // row (group * 32 / lanes + l / lanes), accesses l % lanes + i * lanes for
-// i < APL (those at or past D / EPV hold no column)
-template <typename T, int EPV, int APL>
+// i < APL (those at or past D / EPV hold no column). kAdd: the row is x +
+// addend, written to sums before its statistics
+template <typename T, int EPV, int APL, bool kAdd>
 __global__ void __launch_bounds__(kRowWarps * 32)
-    ln_rows(const T* __restrict__ x, const float* __restrict__ scale,
-            const float* __restrict__ bias, T* __restrict__ out, long long rows, int D,
-            int lanes, float eps) {
+    ln_rows(const T* __restrict__ x, const T* __restrict__ addend,
+            const float* __restrict__ scale, const float* __restrict__ bias,
+            T* __restrict__ sums, T* __restrict__ out, long long rows, int D, int lanes,
+            float eps) {
   using A = Access<T, EPV>;
   using Raw = typename A::Raw;
   const int lane = threadIdx.x & 31;
@@ -176,18 +209,29 @@ __global__ void __launch_bounds__(kRowWarps * 32)
     }
   }
 
-  // a group's loads into r (zeros past the row's end or the last row)
-  auto load_group = [&](Raw(&r)[APL], long long grp) {
+  // a group's loads of x into r and of the addend into q (zeros past the
+  // row's end or the last row)
+  auto load_group = [&](Raw(&r)[APL], Raw(&q)[APL], long long grp) {
     const long long row = grp * per_group + sub;
 #pragma unroll
     for (int i = 0; i < APL; ++i) {
       const int a = j + i * lanes;
-      r[i] = (row < rows && a < n_access) ? A::load(x + row * D + a * EPV) : Raw{};
+      const bool in = row < rows && a < n_access;
+      r[i] = in ? A::load(x + row * D + a * EPV) : Raw{};
+      if constexpr (kAdd) q[i] = in ? A::load(addend + row * D + a * EPV) : Raw{};
     }
   };
-  // statistics and output of the group held in r
-  auto finish_group = [&](const Raw(&r)[APL], long long grp) {
+  // the sum (kAdd), statistics and output of the group held in r (and q)
+  auto finish_group = [&](Raw(&r)[APL], const Raw(&q)[APL], long long grp) {
     const long long row = grp * per_group + sub;
+    if constexpr (kAdd) {
+#pragma unroll
+      for (int i = 0; i < APL; ++i) {
+        add_into<T, EPV>(r[i], q[i]);  // zeros where no column
+        const int a = j + i * lanes;
+        if (row < rows && a < n_access) A::put(sums + row * D + a * EPV, r[i]);
+      }
+    }
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < APL; ++i) {
@@ -227,17 +271,17 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 
   // two register buffers: the next group's loads go out before this
   // group's reductions
-  Raw r0[APL], r1[APL];
-  load_group(r0, g);
+  Raw r0[APL], r1[APL], q0[APL], q1[APL];  // q0, q1 unused without kAdd
+  load_group(r0, q0, g);
   while (true) {
     long long next = g + stride;
-    if (next < groups) load_group(r1, next);
-    finish_group(r0, g);
+    if (next < groups) load_group(r1, q1, next);
+    finish_group(r0, q0, g);
     if (next >= groups) break;
     g = next;
     next = g + stride;
-    if (next < groups) load_group(r0, next);
-    finish_group(r1, g);
+    if (next < groups) load_group(r0, q0, next);
+    finish_group(r1, q1, g);
     if (next >= groups) break;
     g = next;
   }
@@ -258,12 +302,13 @@ __device__ inline float block_sum(float v, float* part) {
 
 // Block route: block k walks rows k, k + gridDim.x, ...; thread t takes
 // accesses t, t + kBlockThreads, ... of the row, staged in shared memory
-// (each thread reads back only what it wrote)
-template <typename T, int EPV>
+// (each thread reads back only what it wrote). kAdd: the row is x +
+// addend, written to sums as it is staged
+template <typename T, int EPV, bool kAdd>
 __global__ void __launch_bounds__(kBlockThreads)
-    ln_block(const T* __restrict__ x, const float* __restrict__ scale,
-             const float* __restrict__ bias, T* __restrict__ out, long long rows, int D,
-             float eps) {
+    ln_block(const T* __restrict__ x, const T* __restrict__ addend,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             T* __restrict__ sums, T* __restrict__ out, long long rows, int D, float eps) {
   using A = Access<T, EPV>;
   using Raw = typename A::Raw;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -276,7 +321,11 @@ __global__ void __launch_bounds__(kBlockThreads)
     float sum = 0.f;
 #pragma unroll 4
     for (int a = threadIdx.x; a < n_access; a += kBlockThreads) {
-      const Raw r = A::load(xr + a * EPV);
+      Raw r = A::load(xr + a * EPV);
+      if constexpr (kAdd) {
+        add_into<T, EPV>(r, A::load(addend + row * D + a * EPV));
+        A::put(sums + row * D + a * EPV, r);
+      }
       stage[a] = r;
       float v[EPV];
       A::unpack(r, v);
@@ -321,8 +370,10 @@ long long resident_blocks(K kernel, int threads, size_t smem) {
 
 struct Args {
   const void* x;
+  const void* addend;  // the fused entry's second input, else null
   const float* scale;
   const float* bias;
+  void* sums;  // the fused entry's sums, else null
   void* out;
   long long rows;
   int D;
@@ -331,57 +382,68 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int EPV, int APL>
+template <typename T, int EPV, int APL, bool kAdd>
 cudaError_t launch_rows(const Args& p) {
-  static long long resident = resident_blocks(ln_rows<T, EPV, APL>, kRowWarps * 32, 0);
+  static long long resident = resident_blocks(ln_rows<T, EPV, APL, kAdd>, kRowWarps * 32, 0);
   const long long groups = (p.rows + 32 / p.lanes - 1) / (32 / p.lanes);
   const long long need = (groups + kRowWarps - 1) / kRowWarps;
   const unsigned blocks = static_cast<unsigned>(need < resident ? need : resident);
-  ln_rows<T, EPV, APL><<<blocks, kRowWarps * 32, 0, p.stream>>>(
-      static_cast<const T*>(p.x), p.scale, p.bias, static_cast<T*>(p.out), p.rows, p.D, p.lanes,
-      p.eps);
+  ln_rows<T, EPV, APL, kAdd><<<blocks, kRowWarps * 32, 0, p.stream>>>(
+      static_cast<const T*>(p.x), static_cast<const T*>(p.addend), p.scale, p.bias,
+      static_cast<T*>(p.sums), static_cast<T*>(p.out), p.rows, p.D, p.lanes, p.eps);
   return cudaGetLastError();
 }
 
 // the row route at per_lane accesses a lane, if APL... holds it
-template <typename T, int EPV, int... APL>
+template <typename T, int EPV, bool kAdd, int... APL>
 cudaError_t launch_rows_of(int per_lane, const Args& p) {
   cudaError_t err = cudaErrorInvalidValue;
-  ((per_lane == APL && (err = launch_rows<T, EPV, APL>(p), true)) || ...);
+  ((per_lane == APL && (err = launch_rows<T, EPV, APL, kAdd>(p), true)) || ...);
   return err;
 }
 
-template <typename T, int EPV>
+template <typename T, int EPV, bool kAdd>
 cudaError_t launch_block(const Args& p) {
   const size_t smem = static_cast<size_t>(p.D) * sizeof(T);
   if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ln_block<T, EPV>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err =
+        cudaFuncSetAttribute(ln_block<T, EPV, kAdd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const long long resident = resident_blocks(ln_block<T, EPV>, kBlockThreads, smem);
+  const long long resident = resident_blocks(ln_block<T, EPV, kAdd>, kBlockThreads, smem);
   const unsigned blocks = static_cast<unsigned>(p.rows < resident ? p.rows : resident);
-  ln_block<T, EPV><<<blocks, kBlockThreads, smem, p.stream>>>(
-      static_cast<const T*>(p.x), p.scale, p.bias, static_cast<T*>(p.out), p.rows, p.D, p.eps);
+  ln_block<T, EPV, kAdd><<<blocks, kBlockThreads, smem, p.stream>>>(
+      static_cast<const T*>(p.x), static_cast<const T*>(p.addend), p.scale, p.bias,
+      static_cast<T*>(p.sums), static_cast<T*>(p.out), p.rows, p.D, p.eps);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kAdd>
 cudaError_t dispatch(int route, int vec, int per_lane, const Args& p) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec != 1 && vec != kVec) return cudaErrorInvalidValue;
-  if (route == 1) return vec == 1 ? launch_block<T, 1>(p) : launch_block<T, kVec>(p);
+  if (route == 1) return vec == 1 ? launch_block<T, 1, kAdd>(p) : launch_block<T, kVec, kAdd>(p);
   if (route != 0 || p.lanes < 1 || p.lanes > 32 || (p.lanes & (p.lanes - 1)) != 0 ||
       static_cast<long long>(p.lanes) * per_lane * vec < p.D || per_lane * vec > kRowValues) {
     return cudaErrorInvalidValue;
   }
   // the shares a lane may take, as ROW_ACCESSES in ops/layer_norm.py
-  if (vec == 1) return launch_rows_of<T, 1, 1, 2, 4, 8, 16, 24>(per_lane, p);
+  if (vec == 1) return launch_rows_of<T, 1, kAdd, 1, 2, 4, 8, 16, 24>(per_lane, p);
   if constexpr (kVec == 8) {
-    return launch_rows_of<T, 8, 1, 2, 3, 4, 5>(per_lane, p);
+    return launch_rows_of<T, 8, kAdd, 1, 2, 3, 4, 5>(per_lane, p);
   } else {
-    return launch_rows_of<T, 4, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10>(per_lane, p);
+    return launch_rows_of<T, 4, kAdd, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10>(per_lane, p);
   }
+}
+
+template <bool kAdd>
+int run(const Args& p, int is_bf16, int route, int vec, int per_lane) {
+  if (p.rows <= 0 || p.D <= 0 || p.D > kMaxD || vec < 1 || p.D % vec != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (is_bf16) return dispatch<bf16, kAdd>(route, vec, per_lane, p);
+  return dispatch<float, kAdd>(route, vec, per_lane, p);
 }
 
 }  // namespace
@@ -393,9 +455,20 @@ cudaError_t dispatch(int route, int vec, int per_lane, const Args& p) {
 WEALY_API int wealy_layer_norm(const void* x, const void* scale, const void* bias, void* out,
                                long long rows, int D, int is_bf16, float eps, int route, int vec,
                                int lanes, int per_lane, void* stream) {
-  if (rows <= 0 || D <= 0 || D > kMaxD || vec < 1 || D % vec != 0) return cudaErrorInvalidValue;
-  const Args p{x, static_cast<const float*>(scale), static_cast<const float*>(bias), out, rows, D,
-               lanes, eps, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return dispatch<bf16>(route, vec, per_lane, p);
-  return dispatch<float>(route, vec, per_lane, p);
+  const Args p{x, nullptr, static_cast<const float*>(scale), static_cast<const float*>(bias),
+               nullptr, out, rows, D, lanes, eps, static_cast<cudaStream_t>(stream)};
+  return run<false>(p, is_bf16, route, vec, per_lane);
+}
+
+// The fused entry: sums = x + addend (x's dtype, one rounding) and out =
+// the LayerNorm of sums, in one pass. x, addend, sums, out: contiguous
+// (rows, D) of one dtype; the rest as wealy_layer_norm (the plan's vec 16
+// bytes only where all six pointers are 16-byte aligned).
+WEALY_API int wealy_add_layer_norm(const void* x, const void* addend, const void* scale,
+                                   const void* bias, void* sums, void* out, long long rows,
+                                   int D, int is_bf16, float eps, int route, int vec, int lanes,
+                                   int per_lane, void* stream) {
+  const Args p{x,    addend, static_cast<const float*>(scale), static_cast<const float*>(bias),
+               sums, out,    rows, D, lanes, eps, static_cast<cudaStream_t>(stream)};
+  return run<true>(p, is_bf16, route, vec, per_lane);
 }

@@ -11,8 +11,19 @@ JAX model:
   master copies beside them, ``train/state.py``); LayerNorm params, the
   MLP biases (the fused kernel adds them in f32), the token and position
   embeddings and the encoder position table stay f32.
-- LayerNorm runs in f32 and is cast back; attention logits and softmax are
-  f32 with products of the rounded operands accumulated in f32.
+- LayerNorm takes f32 statistics and an f32 affine transform, rounded once
+  to the stream's dtype (the JAX model's ``nn.LayerNorm(dtype=f32)`` and
+  ``astype``). On the card it is kernel K6 (``ops/layer_norm.py``) for a bf16
+  or f32 stream (:func:`_ln`), and each residual add runs in the same K6
+  pass as the LayerNorm that reads its sum (:func:`_add_ln`): the block's
+  ``x + attn`` with ``cross_attn_ln`` or ``mlp_ln``, its ``x + mlp`` with the
+  next block's ``attn_ln`` or the stack's final LayerNorm. The sum is
+  rounded as ``x + y`` rounds it, so the numbers are those of the add
+  followed by the LayerNorm. The encoder's stream is row-major (B, T, D)
+  from the stem on. Off K6 (the CPU, other dtypes) the add and
+  ``F.layer_norm`` on the f32 upcast run apart.
+- Attention logits and softmax are f32 with products of the rounded
+  operands accumulated in f32.
 - Mask-free, cache-free self-attention with Tq >= 256 (the encoder) goes to
   the fused attention kernel K2 (``flash_mha``); bf16 MLPs with T >= 256 go to
   the fused MLP kernel K3 (``fused_mlp``). Elsewhere the plain path runs, with
@@ -73,6 +84,14 @@ from wealy_tpu_torch.ops.decode_attention import (
 )
 from wealy_tpu_torch.ops.flash_attention import flash_mha
 from wealy_tpu_torch.ops.fused_mlp import fused_mlp
+from wealy_tpu_torch.ops.layer_norm import (
+    _aten_add_ln,
+    _aten_ln,
+    fused_add_layer_norm,
+    fused_layer_norm,
+)
+from wealy_tpu_torch.ops.layer_norm import takes as k6_takes
+from wealy_tpu_torch.utils.profiling import trace_span
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -95,8 +114,20 @@ def is_float8(dtype) -> bool:
 
 
 def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm in f32, cast back to the input dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
+    """LayerNorm with f32 statistics and affine, in x's dtype: one K6 pass
+    where K6 takes x (``ops/layer_norm.py::takes``), else ``F.layer_norm`` on
+    x's f32 upcast."""
+    if k6_takes(x):
+        return fused_layer_norm(x, ln.weight, ln.bias, ln.eps)
+    return _aten_ln(x, ln.weight, ln.bias, ln.eps)
+
+
+def _add_ln(ln: nn.LayerNorm, x: torch.Tensor, y: torch.Tensor):
+    """``(x + y, _ln(ln, x + y))``: the residual add and the LayerNorm that
+    reads its sum, one K6 pass where K6 takes x."""
+    if k6_takes(x):
+        return fused_add_layer_norm(x, y, ln.weight, ln.bias, ln.eps)
+    return _aten_add_ln(x, y, ln.weight, ln.bias, ln.eps)
 
 
 def _write_cache(cache: torch.Tensor, at, new: torch.Tensor) -> None:
@@ -246,13 +277,23 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp[2].bias = nn.Parameter(torch.zeros(n_state, device=device))
         self.mlp_ln = nn.LayerNorm(n_state, eps=1e-5, device=device)
 
-    def forward(self, x, xa=None, mask=None, kv_cache=None, cache_index=None, xa_kv=None):
-        x = x + self.attn(
-            _ln(self.attn_ln, x), mask=mask, kv_cache=kv_cache, cache_index=cache_index
-        )
+    def forward(self, x, h, next_ln=None, xa=None, mask=None, kv_cache=None, cache_index=None,
+                xa_kv=None):
+        """(the new stream, ``next_ln`` of it or None without ``next_ln``)
+        from the stream ``x`` and ``h = attn_ln(x)``, which the stack made
+        with the previous residual add (:func:`run_blocks`). Each residual
+        add runs with the LayerNorm that reads its sum (:func:`_add_ln`)."""
+        a = self.attn(h, mask=mask, kv_cache=kv_cache, cache_index=cache_index)
         if self.cross_attn is not None:
-            x = x + self.cross_attn(_ln(self.cross_attn_ln, x), xa=xa, xa_kv=xa_kv)
-        h = _ln(self.mlp_ln, x)
+            x, h = _add_ln(self.cross_attn_ln, x, a)
+            a = self.cross_attn(h, xa=xa, xa_kv=xa_kv)
+        x, h = _add_ln(self.mlp_ln, x, a)
+        h = self._mlp(h)
+        if next_ln is None:
+            return x + h, None
+        return _add_ln(next_ln, x, h)
+
+    def _mlp(self, h):
         fc1, fc2 = self.mlp[0], self.mlp[2]
         # under TP the rank's partial sum takes a zero b2; fc2's bias is
         # added once, after the reduction
@@ -267,7 +308,23 @@ class ResidualAttentionBlock(nn.Module):
             h = F.linear(h, fc2.weight) + b2.to(h.dtype)
         if self.tp is not None:
             h = self.tp.exit(h, fc2.bias)
-        return x + h
+        return h
+
+
+def _stack_lns(blocks, final_ln):
+    """Each block's following LayerNorm: the next block's ``attn_ln``, and
+    ``final_ln`` after the last."""
+    return [b.attn_ln for b in blocks[1:]] + [final_ln]
+
+
+def run_blocks(blocks, x, final_ln=None):
+    """The stack ``blocks`` (no cross-attention) on the stream ``x``: (the
+    stream after the last block, ``final_ln`` of it or None). The encoder
+    and a pipeline stage (``parallel/pp.py``) run their blocks so."""
+    h = _ln(blocks[0].attn_ln, x)
+    for block, next_ln in zip(blocks, _stack_lns(blocks, final_ln)):
+        x, h = block(x, h, next_ln)
+    return x, h
 
 
 class WhisperEncoder(nn.Module):
@@ -296,21 +353,26 @@ class WhisperEncoder(nn.Module):
         self.ln_post = nn.LayerNorm(D, eps=1e-5, device=device)
 
     def stem(self, mel: torch.Tensor) -> torch.Tensor:
-        """The conv stem and the position table: mel -> (B, T, D)."""
+        """The conv stem and the position table: mel -> a row-major (B, T,
+        D) stream."""
         x = F.gelu(self.conv1(mel.to(self.dtype)), approximate="none")
-        x = F.gelu(self.conv2(x), approximate="none").transpose(1, 2)  # (B, T, D)
-        return x + self.positional_embedding[: x.shape[1]].to(self.dtype)
+        x = F.gelu(self.conv2(x), approximate="none").transpose(1, 2)  # (B, T, D) view
+        # the row-major table first: the sum takes its layout, not the
+        # transposed view's
+        return self.positional_embedding[: x.shape[1]].to(self.dtype) + x
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.stem(mel)
         sp = self.tp is not None and self.tp.sequence_parallel
         if sp:
             x = self.tp.split_time(x)
-        for block in self.blocks:
-            x = block(x)
-        if sp:
-            x = self.tp.gather_time(x)
-        return _ln(self.ln_post, x)
+        # n: 1 when every LayerNorm pass of the forward ran on K6
+        with trace_span("whisper.encoder_ln") as span:
+            launched = fused_layer_norm.launches
+            _, h = run_blocks(self.blocks, x, self.ln_post)
+            span.n = int(fused_layer_norm.launches - launched == 2 * len(self.blocks) + 1)
+        # LayerNorm is row-wise: the gathered rows of the normalised stream
+        return self.tp.gather_time(h) if sp else h
 
 
 class WhisperDecoder(nn.Module):
@@ -375,9 +437,16 @@ class WhisperDecoder(nn.Module):
         x = embed[tokens].to(self.dtype) + pos.to(self.dtype)
 
         all_hiddens = [x]
-        for i, block in enumerate(self.blocks):
-            x = block(
+        # with the caches only the final LayerNorm's rounding to the compute
+        # dtype is read, so it runs with the last residual add; teacher
+        # forcing reads it in f32 (the logits), after the stack
+        next_lns = _stack_lns(self.blocks, self.ln if kv_caches is not None else None)
+        h = _ln(self.blocks[0].attn_ln, x)
+        for i, (block, next_ln) in enumerate(zip(self.blocks, next_lns)):
+            x, h = block(
                 x,
+                h,
+                next_ln,
                 xa=audio_states,
                 mask=mask,
                 kv_cache=None if kv_caches is None else kv_caches[i],
@@ -387,15 +456,15 @@ class WhisperDecoder(nn.Module):
             if return_all_hiddens:
                 all_hiddens.append(x)
 
-        x = F.layer_norm(x.float(), self.ln.normalized_shape, self.ln.weight, self.ln.bias,
-                         self.ln.eps)
         if kv_caches is not None:
+            hidden = h
             if logit_weight is None:
                 logit_weight = self.logit_table()
-            logits = step_logits(x.to(self.dtype), logit_weight)
+            logits = step_logits(hidden, logit_weight)
         else:
+            x = _ln(self.ln, x.float())
             logits = x @ embed.T
-        hidden = x.to(self.dtype)
+            hidden = x.to(self.dtype)
         extras = [torch.stack(all_hiddens)] if return_all_hiddens else []
         if kv_caches is None:
             return (hidden, logits, *extras)

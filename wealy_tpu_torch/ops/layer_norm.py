@@ -21,11 +21,30 @@ lane's registers, in shared memory (the block route: a block a row), so
 nothing but x and the output crosses device memory. :func:`launch_plan`
 picks the route and the split of a row over lanes; the kernel takes
 1 <= D <= ``MAX_D``.
+
+:func:`fused_add_layer_norm` is K6's second entry: ``(s, h)`` with ``s = x +
+y`` (the residual add, rounded once to x's dtype as PyTorch's ``x + y``) and
+``h`` the LayerNorm of ``s``, in one pass over the rows on the same routes
+(8 bytes an element in bf16 where ``x + y`` then :func:`fused_layer_norm`
+move 10). The Whisper blocks fuse each residual add with the LayerNorm that
+reads its sum this way. Its plain version is ``_reference_ln(x + y)``. It
+has no JAX counterpart, and its backward differentiates the same function
+through ATen's f32 LayerNorm (:func:`_aten_add_ln`): one fused backward
+kernel, where autograd of ``_reference_ln`` runs some twenty elementwise
+passes over f32 copies of the stream. The plain entry keeps the JAX
+backward: its tests hold its gradients within 1e-5 relative and 1e-6
+absolute of the plain version's, which ATen's reduction order misses in
+the scale and bias gradients. :func:`takes` is the route a caller chooses from
+the input alone: the kernel for a CUDA tensor in bf16 or f32 with D <=
+``MAX_D``. ``fused_layer_norm.launches`` counts K6's launches by either
+entry, ``fused_add_layer_norm.launches`` the fused entry's.
 """
 
 from __future__ import annotations
 
 import torch
+
+import torch.nn.functional as F
 
 from wealy_tpu_torch import _build
 
@@ -83,9 +102,18 @@ def _kernel_route(t: torch.Tensor) -> bool:
     return t.device.type != "cpu"
 
 
-def _launch_ln(x, scale, bias, eps: float):
-    """K6 on (..., D) CUDA x."""
-    D = x.shape[-1]
+def takes(x: torch.Tensor) -> bool:
+    """Whether K6 takes rows ``x`` (..., D): a CUDA tensor in bf16 or f32
+    with 1 <= D <= ``MAX_D``. Elsewhere a caller runs the plain version."""
+    return (x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float32)
+            and x.dim() > 0 and 1 <= x.shape[-1] <= MAX_D)
+
+
+def _rows(name: str, x, scale, bias, *more):
+    """x and ``more`` (each x's shape, dtype and device) as contiguous
+    (rows, D), with contiguous scale and bias; raises on what K6 does not
+    take."""
+    D = x.shape[-1] if x.dim() else 0
     if (
         x.device.type != "cuda"
         or {scale.device, bias.device} != {x.device}
@@ -94,23 +122,37 @@ def _launch_ln(x, scale, bias, eps: float):
         or scale.shape != (D,)
         or bias.shape != (D,)
         or not 1 <= D <= MAX_D
+        or any((t.shape, t.dtype, t.device) != (x.shape, x.dtype, x.device) for t in more)
     ):
         raise ValueError(
-            "fused_layer_norm: the kernel takes bf16 or f32 CUDA x (..., D) with "
-            f"1 <= D <= {MAX_D} and f32 scale, bias (D,) on the same device; got x "
-            f"{tuple(x.shape)} {x.dtype} {x.device}, scale {tuple(scale.shape)} {scale.dtype} "
-            f"{scale.device}, bias {tuple(bias.shape)} {bias.dtype} {bias.device}"
+            f"{name}: the kernel takes bf16 or f32 CUDA x (..., D) with 1 <= D <= {MAX_D}"
+            + (", y of x's shape, dtype and device" if more else "")
+            + " and f32 scale, bias (D,) on the same device; got x "
+            f"{tuple(x.shape)} {x.dtype} {x.device}, "
+            + "".join(f"y {tuple(t.shape)} {t.dtype} {t.device}, " for t in more)
+            + f"scale {tuple(scale.shape)} {scale.dtype} {scale.device}, bias "
+            f"{tuple(bias.shape)} {bias.dtype} {bias.device}"
         )
-    xr = x.reshape(-1, D).contiguous()
-    scale, bias = scale.contiguous(), bias.contiguous()
+    return ([t.reshape(-1, D).contiguous() for t in (x, *more)], scale.contiguous(),
+            bias.contiguous())
+
+
+def _plan(D: int, bf16: bool, *tensors) -> tuple[int, int, int, int]:
+    """:func:`launch_plan` at the tensors' addresses: 16-byte accesses only
+    where every one starts on a 16-byte boundary."""
+    return launch_plan(D, bf16, all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _launch_ln(x, scale, bias, eps: float):
+    """K6 on (..., D) CUDA x."""
+    (xr,), scale, bias = _rows("fused_layer_norm", x, scale, bias)
     out = torch.empty_like(xr)
     if xr.shape[0]:
-        bf16 = x.dtype == torch.bfloat16
-        aligned = all(t.data_ptr() % 16 == 0 for t in (xr, out, scale, bias))
+        D, bf16 = xr.shape[1], x.dtype == torch.bfloat16
         _build.check(
             _build.library().wealy_layer_norm(
                 xr.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                xr.shape[0], D, int(bf16), float(eps), *launch_plan(D, bf16, aligned),
+                xr.shape[0], D, int(bf16), float(eps), *_plan(D, bf16, xr, out, scale, bias),
                 _build.stream(x.device),
             ),
             "fused_layer_norm",
@@ -119,11 +161,61 @@ def _launch_ln(x, scale, bias, eps: float):
     return out.reshape(x.shape)
 
 
+def _launch_add_ln(x, y, scale, bias, eps: float):
+    """K6's fused entry on (..., D) CUDA x and y: (x + y, its LayerNorm)."""
+    (xr, yr), scale, bias = _rows("fused_add_layer_norm", x, scale, bias, y)
+    s, out = torch.empty_like(xr), torch.empty_like(xr)
+    if xr.shape[0]:
+        D, bf16 = xr.shape[1], x.dtype == torch.bfloat16
+        _build.check(
+            _build.library().wealy_add_layer_norm(
+                xr.data_ptr(), yr.data_ptr(), scale.data_ptr(), bias.data_ptr(), s.data_ptr(),
+                out.data_ptr(), xr.shape[0], D, int(bf16), float(eps),
+                *_plan(D, bf16, xr, yr, s, out, scale, bias), _build.stream(x.device),
+            ),
+            "fused_add_layer_norm",
+        )
+        fused_layer_norm.launches += 1
+        fused_add_layer_norm.launches += 1
+    return s.reshape(x.shape), out.reshape(x.shape)
+
+
+def _reference_add_ln(x, y, scale, bias, eps: float):
+    """The fused entry's plain version: (x + y, _reference_ln(x + y))."""
+    s = x + y
+    return s, _reference_ln(s, scale, bias, eps)
+
+
+def _aten_ln(x, scale, bias, eps: float):
+    """ATen's LayerNorm on x's f32 upcast, in x's dtype: _reference_ln's
+    function, with one fused backward kernel."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias, eps).to(x.dtype)
+
+
+def _aten_add_ln(x, y, scale, bias, eps: float):
+    """(x + y, _aten_ln(x + y)): what the fused entry's backward
+    differentiates."""
+    s = x + y
+    return s, _aten_ln(s, scale, bias, eps)
+
+
 def _ln_fwd(x, scale, bias, eps: float = 1e-5):
     """The forward alone: K6, or the plain version for a CPU tensor."""
     if not _kernel_route(x):
         return _reference_ln(x, scale, bias, eps)
     return _launch_ln(x, scale, bias, eps)
+
+
+def _backward(ctx, fn, *g):
+    """The input gradients of ``fn(*saved inputs, eps)`` against the output
+    gradients ``g``: autograd on the saved inputs, one gradient a
+    differentiable input (None where none is needed), None for eps."""
+    need = ctx.needs_input_grad[:-1]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        outs = fn(*leaves, ctx.eps)
+        grads = iter(torch.autograd.grad(outs, [t for t in leaves if t.requires_grad], g))
+    return (*(next(grads) if n else None for n in need), None)
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -137,12 +229,7 @@ class _FusedLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            out = _reference_ln(*leaves, ctx.eps)
-            grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
-        return (*(next(grads) if n else None for n in need), None)
+        return _backward(ctx, _reference_ln, g)
 
 
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -154,3 +241,39 @@ def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
 
 
 fused_layer_norm.launches = 0
+
+
+def _add_ln_fwd(x, y, scale, bias, eps: float = 1e-5):
+    """The fused entry's forward alone: K6, or the plain version for a CPU
+    tensor."""
+    if not _kernel_route(x):
+        return _reference_add_ln(x, y, scale, bias, eps)
+    return _launch_add_ln(x, y, scale, bias, eps)
+
+
+class _FusedAddLayerNorm(torch.autograd.Function):
+    """K6's fused forward; backward = autograd of _aten_add_ln on the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, y, scale, bias, eps):
+        ctx.save_for_backward(x, y, scale, bias)
+        ctx.eps = eps
+        return _add_ln_fwd(x, y, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g_s, g_h):
+        return _backward(ctx, _aten_add_ln, g_s, g_h)
+
+
+def fused_add_layer_norm(x, y, scale, bias, eps: float = 1e-5):
+    """``(s, h)``: the residual add ``s = x + y`` in x's dtype (f32 sum, one
+    rounding) and ``h``, the LayerNorm of ``s`` over the last axis (f32
+    statistics and affine, one rounding to x's dtype), in one K6 pass on the
+    card; differentiable in x, y, scale and bias."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, y, scale, bias)):
+        return _FusedAddLayerNorm.apply(x, y, scale, bias, eps)
+    return _add_ln_fwd(x, y, scale, bias, eps)
+
+
+fused_add_layer_norm.launches = 0

@@ -75,9 +75,9 @@ class _Schedule:
         self.M = n_micro
 
     def run_blocks(self, x):
-        for block in self.blocks:
-            x = block(x)
-        return x
+        from wealy_tpu_torch.models.whisper.model import run_blocks
+
+        return run_blocks(self.blocks, x)[0]
 
     def forward(self, x0: torch.Tensor, keep: bool):
         mesh, S, s = self.mesh, self.S, self.s
