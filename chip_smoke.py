@@ -56,7 +56,7 @@ its beam rung with an initial prompt), ``extract --batched`` through float8
 KV caches beside the bf16 route (the JAX tests' bounds, teacher-forced),
 and whisper-tiny card against CPU (greedy tokens up to the CPU's first
 near-tie, teacher-forced logits, ``detect_language``). Phase 24 runs
-``extract --batched --quant-int8`` (the W8A8 int8 encoder: K1, K2, int8
+``extract --batched --quant-int8`` (the W8A8 int8 encoder: K1, K2, K6, int8
 dense layers, no K3) over phase 21's split at large-v3-turbo beside the
 bf16 route, holds it against the f32 encoder with the JAX test's bounds
 and at whisper-tiny card against CPU, traces an extract with ``--profile``
@@ -3000,12 +3000,10 @@ def free_port() -> int:
 
 def layer_outputs(encoder, mel) -> tuple:
     """(the encoder's output, every block's output stream) as f32, by forward
-    hooks (a block of ``models/whisper/model.py`` returns the stream and the
-    next LayerNorm's input; the int8 encoder's block the stream)."""
+    hooks (a block returns the stream and the next LayerNorm's input)."""
     outs = []
-    hooks = [b.register_forward_hook(
-        lambda m, i, o: outs.append((o[0] if isinstance(o, tuple) else o).float()))
-        for b in encoder.blocks]
+    hooks = [b.register_forward_hook(lambda m, i, o: outs.append(o[0].float()))
+             for b in encoder.blocks]
     with torch.no_grad():
         final = encoder(mel).float()
     for h in hooks:
@@ -3093,8 +3091,9 @@ def quant_int8_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
     rate = {"int8": n_chunks / (q_s - builds["int8"]), "bf16": n_chunks / (b_s - builds["bf16"])}
     check(q_out["done"] == b_out["done"] == len(SPLIT_AUDIO) and not q_out["incomplete"],
           f"phase 24a int8 {q_out} bf16 {b_out}")
-    check(launched["log_mel"] > 0 and launched["flash_mha"] > 0 and launched["fused_mlp"] == 0,
-          f"phase 24a int8 command launches {launched} (K1, K2 above 0, K3 at 0)")
+    check(launched["log_mel"] > 0 and launched["flash_mha"] > 0 and launched["fused_mlp"] == 0
+          and launched["layer_norm_add"] > 0,
+          f"phase 24a int8 command launches {launched} (K1, K2, K6's fused add above 0, K3 at 0)")
     stores = {w: EmbeddingStore(os.path.join(tmp, f"hs_q_{w}"), "lyric-covers")
               for w in ("int8", "bf16")}
     versions = [str(2100 + i) for i in range(len(SPLIT_AUDIO))]
@@ -3108,9 +3107,9 @@ def quant_int8_phase(tmp: str, dev, reset_counts, counts, smi: str) -> dict:
     cpu_quant_s = time.perf_counter() - t
     qenc = kept["int8"]
     same_codes = all(
-        torch.equal(getattr(blk, n).weight.cpu(), torch.from_numpy(qtree["layers"][i][n]["w"]))
-        and torch.equal(getattr(blk, n).scale.cpu(), torch.from_numpy(qtree["layers"][i][n]["s"]))
-        for i, blk in enumerate(qenc.blocks) for n, _, _ in wquant.DENSE)
+        torch.equal(blk.get_submodule(p).weight.cpu(), torch.from_numpy(layer[n]["w"]))
+        and torch.equal(blk.get_submodule(p).scale.cpu(), torch.from_numpy(layer[n]["s"]))
+        for blk, layer in zip(qenc.blocks, qtree["layers"]) for n, p, _ in wquant.DENSE)
     check(same_codes, "phase 24a int8 weights or scales on the card differ from the CPU's")
 
     # one 4-chunk batch of the split's audio: int8 and bf16 against the f32

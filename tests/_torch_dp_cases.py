@@ -73,14 +73,10 @@ def quant_encoder_and_mel():
     seeded f32 Whisper, and a (4, 8, 64) mel."""
     from wealy_tpu_torch.models.whisper.config import WhisperConfig
     from wealy_tpu_torch.models.whisper.model import Whisper
-    from wealy_tpu_torch.models.whisper.quant import (
-        QuantWhisperEncoder,
-        quantize_encoder_state_dict,
-    )
+    from wealy_tpu_torch.models.whisper.quant import quant_encoder
 
     cfg = WhisperConfig(**QUANT_SIZES)
     model = Whisper(cfg, dtype=torch.float32).init_weights(torch.Generator().manual_seed(0))
-    enc = QuantWhisperEncoder(cfg, quantize_encoder_state_dict(model.state_dict(), cfg),
-                              dtype=torch.float32, device="cpu").eval()
+    enc = quant_encoder(cfg, model.state_dict(), dtype=torch.float32, device="cpu")
     mel = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 8, 64)).astype(np.float32))
     return enc, mel

@@ -81,7 +81,7 @@ RENAMED = {
     "models/whisper/quant.py::quantize_encoder_params": (
         "quantize_encoder_state_dict", "quantises a torch state dict, not a params tree"),
     "models/whisper/quant.py::quant_encode_fn": (
-        "QuantWhisperEncoder", "an nn.Module holding the int8 weights, not a jitted function"),
+        "quant_encoder", "a WhisperEncoder holding the int8 weights, not a jitted function"),
     "ops/framing.py::force_length(key)": ("generator", GENERATOR),
     "ops/framing.py::get_frames(key)": ("generator", GENERATOR),
     "ops/layer_norm.py::FusedLayerNorm": (

@@ -1,11 +1,12 @@
 """Batched extraction over a split, the counterpart of
 ``wealy_tpu.cli.extract_batched``.
 
-The split jobs pack 30 s chunks from many songs into fixed-size device
-batches, keep the host decode running ahead (a thread pool with a bounded,
-ordered window, behind :func:`wealy_tpu_torch.utils.prefetch.prefetch`),
-and scatter each batch's rows back into per-song accumulators that flush to
-the store (or a ``sink``) as soon as a song is complete:
+The split jobs, one loop (``_split``), pack 30 s chunks from many songs into
+fixed-size device batches, keep the host decode running ahead (a thread pool
+with a bounded, ordered window, behind
+:func:`wealy_tpu_torch.utils.prefetch.prefetch`), and scatter each batch's
+rows back into per-song accumulators that flush to the store (or a ``sink``)
+as soon as a song is complete:
 
 - :func:`extract_split_batched`: ``embed_fn(audio (B, 480000)) -> (B, D)``,
   one row per chunk (``x_concat``, ``hs_wealy_concat``);
@@ -54,7 +55,6 @@ the files are those one process writes.
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -69,14 +69,6 @@ from wealy_tpu_torch.models.whisper.extract import chunk_count, chunk_waveform
 from wealy_tpu_torch.parallel.mesh import barrier, shard_rows
 from wealy_tpu_torch.utils.prefetch import prefetch
 from wealy_tpu_torch.utils.profiling import ThroughputMeter, trace_span
-
-
-@dataclasses.dataclass
-class _SongAcc:
-    version_key: str
-    n_chunks: int
-    received: int = 0
-    embeddings: Optional[np.ndarray] = None  # (n_chunks, D)
 
 
 def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
@@ -131,13 +123,20 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
             yield from chunks_of(version_key, item)
 
 
-def _host(x) -> np.ndarray:
-    """A batch output as f32 numpy (a bf16 tensor through ``float()``: numpy
-    has no bf16). For a card tensor this is the batch's one sync."""
-    if isinstance(x, torch.Tensor):
-        with trace_span("extract.d2h"):
-            return x.detach().float().cpu().numpy()
-    return np.asarray(x, np.float32)
+def _host(out) -> list:
+    """A batch's outputs (one, or a tuple or list of them) as numpy, the
+    floating ones in f32 (a bf16 tensor through ``float()``: numpy has no
+    bf16), in one ``extract.d2h`` span. For card tensors the first copy is
+    the batch's one sync."""
+
+    def numpy(x):
+        if isinstance(x, torch.Tensor):
+            x = (x.detach().float() if x.is_floating_point() else x.detach()).cpu()
+        x = np.asarray(x)
+        return x.astype(np.float32, copy=False) if x.dtype.kind == "f" else x
+
+    with trace_span("extract.d2h"):
+        return [numpy(x) for x in (out if isinstance(out, (tuple, list)) else (out,))]
 
 
 def _schedule(config, metadata, split: str, filename: str, limit, overwrite, skip_fn, mesh):
@@ -198,6 +197,43 @@ def _audit(config, store, metadata, filename: str, sink, mesh) -> None:
         store.verify(metadata, filename, out_dir=audit_dir)
 
 
+def _split(config, metadata, split: str, fn: Callable, finish: Callable, *, kind: str,
+           batch_size: int, mesh, limit, overwrite: bool, n_workers: int, log, sink,
+           skip_fn) -> dict:
+    """The split loop of both jobs: ``fn``'s outputs for each padded batch
+    as per-row host arrays, kept per song until its last chunk arrives, when
+    ``save(version_key, **finish(*outputs))`` stores it, each output a tuple
+    over the song's chunks in order."""
+    filename = f"{kind}.npz"
+    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
+                                   mesh)
+    save = _writer(mesh, sink or (lambda v, **arrays: store.save(v, filename, **arrays)))
+    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
+    accs: Dict[str, list] = {}  # per song, each chunk's row of outputs or None
+    done: List[str] = []
+    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
+
+    for batch in _batches(ds, batch_size, n_workers):
+        with trace_span("extract.batch"):
+            outs = _host(fn(_padded(batch, buf)))
+        meter.tick(len(batch))
+        with trace_span("extract.scatter"):
+            for (version_key, chunk_idx, n_chunks, _), *row in zip(batch, *outs):
+                acc = accs.setdefault(version_key, [None] * n_chunks)
+                acc[chunk_idx] = row
+                if None not in acc:
+                    save(version_key, **finish(*zip(*acc)))
+                    done.append(version_key)
+                    del accs[version_key]
+        if done and len(done) % 200 == 0:
+            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
+
+    _audit(config, store, metadata, filename, sink, mesh)
+    # a partly filled accumulator is a fault of this job: reported, not stored
+    return {"done": done, "skipped": skipped, "incomplete": sorted(accs),
+            "throughput": meter.report()}
+
+
 def extract_split_batched(
     config,
     metadata,
@@ -227,40 +263,10 @@ def extract_split_batched(
     Returns {"done": [...], "skipped": n, "incomplete": [...],
     "throughput": ThroughputMeter.report()}.
     """
-    filename = f"{kind}.npz"
-    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
-                                   mesh)
-    save = _writer(mesh, sink or (lambda v, **arrays: store.save(v, filename, **arrays)))
-    embed_fn = shard_rows(mesh, embed_fn)
-    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
-    accs: Dict[str, _SongAcc] = {}
-    done: List[str] = []
-    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
-
-    for batch in _batches(ds, batch_size, n_workers):
-        with trace_span("extract.batch"):
-            z = _host(embed_fn(_padded(batch, buf)))[: len(batch)]
-        meter.tick(len(batch))
-        with trace_span("extract.scatter"):
-            for (version_key, chunk_idx, n_chunks, _), emb in zip(batch, z):
-                acc = accs.get(version_key)
-                if acc is None:
-                    acc = accs[version_key] = _SongAcc(version_key, n_chunks)
-                if acc.embeddings is None:
-                    acc.embeddings = np.zeros((n_chunks, emb.shape[-1]), np.float32)
-                acc.embeddings[chunk_idx] = emb
-                acc.received += 1
-                if acc.received == acc.n_chunks:
-                    save(version_key, embeddings=acc.embeddings)
-                    done.append(version_key)
-                    del accs[version_key]
-        if done and len(done) % 200 == 0:
-            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
-
-    _audit(config, store, metadata, filename, sink, mesh)
-    # a partly filled accumulator is a fault of this job: reported, not stored
-    return {"done": done, "skipped": skipped, "incomplete": sorted(accs),
-            "throughput": meter.report()}
+    return _split(config, metadata, split, shard_rows(mesh, embed_fn),
+                  lambda rows: {"embeddings": np.stack(rows)}, kind=kind,
+                  batch_size=batch_size, mesh=mesh, limit=limit, overwrite=overwrite,
+                  n_workers=n_workers, log=log, sink=sink, skip_fn=skip_fn)
 
 
 def extract_split_batched_decoder(
@@ -292,42 +298,15 @@ def extract_split_batched_decoder(
     """
     from wealy_tpu_torch.models.whisper.extract import flatten_decoder_sequence
 
-    filename = f"{kind}.npz"
-    flatten = kind.startswith("hs_last_seq")
-    store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
-                                   mesh)
-    save = _writer(mesh, sink or (lambda v, **arrays: store.save(v, filename, **arrays)))
-    meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
-    hidden_acc: Dict[str, list] = {}
-    length_acc: Dict[str, list] = {}
-    done: List[str] = []
-    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
+    def finish(hidden, lengths):
+        hid_all, lens = np.stack(hidden), np.array(lengths, np.int32)  # (n_chunks, max_len, D)
+        if kind.startswith("hs_last_seq"):
+            return {"embeddings": flatten_decoder_sequence(hid_all, lens)}
+        return {"embeddings": hid_all, "lengths": lens}
 
-    for batch in _batches(ds, batch_size, n_workers):
-        with trace_span("extract.batch"):
-            hidden, lengths = decode_fn(_padded(batch, buf))
-            hidden = _host(hidden)[: len(batch)]
-        lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
-        meter.tick(len(batch))
-        with trace_span("extract.scatter"):
-            for (version_key, chunk_idx, n_chunks, _), hid, L in zip(batch, hidden, lengths):
-                hidden_acc.setdefault(version_key, [None] * n_chunks)[chunk_idx] = hid
-                length_acc.setdefault(version_key, [0] * n_chunks)[chunk_idx] = int(L)
-                if all(h is not None for h in hidden_acc[version_key]):
-                    hid_all = np.stack(hidden_acc[version_key])  # (n_chunks, max_len, D)
-                    lens = np.array(length_acc[version_key], np.int32)
-                    if flatten:
-                        save(version_key, embeddings=flatten_decoder_sequence(hid_all, lens))
-                    else:
-                        save(version_key, embeddings=hid_all, lengths=lens)
-                    done.append(version_key)
-                    del hidden_acc[version_key], length_acc[version_key]
-        if done and len(done) % 200 == 0:
-            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
-
-    _audit(config, store, metadata, filename, sink, mesh)
-    return {"done": done, "skipped": skipped, "incomplete": sorted(hidden_acc),
-            "throughput": meter.report()}
+    return _split(config, metadata, split, decode_fn, finish, kind=kind, batch_size=batch_size,
+                  mesh=mesh, limit=limit, overwrite=overwrite, n_workers=n_workers, log=log,
+                  sink=sink, skip_fn=skip_fn)
 
 
 def _chunks(audio, device) -> torch.Tensor:
@@ -346,25 +325,17 @@ def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int
     if quant_int8:
         from wealy_tpu_torch.models.whisper.quant import load_quant_encoder
 
-        qenc = load_quant_encoder(config.model.whisper_size, checkpoint=hf_checkpoint,
-                                  device=device, dtype=dtype)
-
-        @torch.inference_mode()
-        def embed_q(audio):
-            x = _chunks(audio, device)
-            with trace_span("whisper.encode", device=device):
-                states = qenc(log_mel_spectrogram_fused(x, n_mels=qenc.config.n_mels))
-            return states.mean(dim=1)
-
-        return embed_q
-    model, wcfg = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
+        encoder = load_quant_encoder(config.model.whisper_size, checkpoint=hf_checkpoint,
                                      device=device, dtype=dtype)
+    else:
+        encoder = load_whisper_model(config.model.whisper_size, checkpoint=hf_checkpoint,
+                                     device=device, dtype=dtype)[0].encoder
 
     @torch.inference_mode()
     def embed(audio):
         x = _chunks(audio, device)
         with trace_span("whisper.encode", device=device):
-            states = model.encode(log_mel_spectrogram_fused(x, n_mels=wcfg.n_mels))
+            states = encoder(log_mel_spectrogram_fused(x, n_mels=encoder.config.n_mels))
         return states.mean(dim=1)
 
     return embed

@@ -27,7 +27,9 @@ JAX model:
 - Mask-free, cache-free self-attention with Tq >= 256 (the encoder) goes to
   the fused attention kernel K2 (``flash_mha``); bf16 MLPs with T >= 256 go to
   the fused MLP kernel K3 (``fused_mlp``). Elsewhere the plain path runs, with
-  MLP biases added in the compute dtype as in the JAX non-fused branch.
+  MLP biases added in the compute dtype as in the JAX non-fused branch. An
+  MLP of int8 projections (the encoder of ``quant.py``) runs them as they
+  are, with the exact GELU between.
 - Incremental decode computes logits from operands rounded to the compute
   dtype, multiplied in f32 (keep TF32 off); teacher-forced logits are f32.
   A decode loop passes the embedding in the compute dtype as
@@ -295,6 +297,9 @@ class ResidualAttentionBlock(nn.Module):
 
     def _mlp(self, h):
         fc1, fc2 = self.mlp[0], self.mlp[2]
+        if not isinstance(fc1, nn.Linear):
+            # int8 projections (models/whisper/quant.py), each rounded to h's dtype
+            return self.mlp(h)
         # under TP the rank's partial sum takes a zero b2; fc2's bias is
         # added once, after the reduction
         b2 = fc2.bias if self.tp is None else torch.zeros_like(fc2.bias)

@@ -14,11 +14,13 @@ layers) run as int8 x int8 -> int32 products:
   ``torch._int_mm`` (the JAX module's ``dot_general`` with an int32 result,
   outside any Pallas kernel there), then ``acc * (sa * s) (+ b)`` in f32.
 
-Everything else stays as in the bf16 encoder: the conv stem and positions
-in the compute dtype, LayerNorm in f32 cast back, attention through K2
-(``ops/flash_attention.py::flash_mha``) as the JAX module goes through its
-``flash_mha``, exact GELU on the compute-dtype fc1 output. The MLP's
-products are int8, so K3 does not run on this route.
+Everything else is :class:`~wealy_tpu_torch.models.whisper.model.WhisperEncoder`
+itself (:func:`quant_encoder` puts a :class:`QuantLinear` in place of each
+of a block's six dense layers): the conv stem and positions in the compute
+dtype, the row-major stream, LayerNorm in f32 cast back (K6 on the card,
+with the residual adds), attention through K2 as the JAX module goes
+through its ``flash_mha``, exact GELU on the compute-dtype fc1 output. The
+MLP's products are int8, so K3 does not run on this route.
 
 :func:`load_quant_encoder` builds the encoder from a checkpoint's f32
 weights or from the seeded f32 draw of ``load_whisper_model`` (the same
@@ -31,12 +33,11 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.models.whisper.config import WHISPER_CONFIGS, WhisperConfig
-from wealy_tpu_torch.ops.flash_attention import flash_mha
+from wealy_tpu_torch.models.whisper.model import Whisper, WhisperEncoder
 
 # (name in the quantized tree, module path in a block, has a bias)
 DENSE = (("q", "attn.query", True), ("k", "attn.key", False), ("v", "attn.value", True),
@@ -61,7 +62,7 @@ def _f32(x) -> np.ndarray:
 def quantize_encoder_state_dict(state_dict: Mapping, config: WhisperConfig) -> dict:
     """An f32 encoder state dict (openai-whisper names, with or without the
     ``encoder.`` prefix; a full model's dict works) -> the quantized tree
-    of :class:`QuantWhisperEncoder`: ``{"stem": {...}, "layers": [per layer
+    of :func:`quant_encoder`: ``{"stem": {...}, "layers": [per layer
     {name: {"w" int8 (out, in), "s" f32 (out,)[, "b" f32 (out,)]}, "attn_ln",
     "mlp_ln"}], "ln_post"}``, numpy leaves. Weights only: activations
     quantize at run time."""
@@ -108,7 +109,9 @@ def qdense(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
 
 class QuantLinear(nn.Module):
     """An int8 dense layer: ``weight`` int8 (out, in), ``scale`` f32 (out,),
-    ``bias`` f32 (out,) or None; returns f32."""
+    ``bias`` f32 (out,) or None; returns :func:`qdense`'s f32 result rounded
+    to the input's dtype, as the JAX route rounds every product before the
+    next operation."""
 
     def __init__(self, tree: dict, device=None):
         super().__init__()
@@ -118,75 +121,32 @@ class QuantLinear(nn.Module):
         self.register_buffer("bias", None if b is None else torch.from_numpy(b).to(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return qdense(x, self.weight, self.scale, self.bias)
+        return qdense(x, self.weight, self.scale, self.bias).to(x.dtype)
 
 
-def _layer_norm(d: dict, device=None) -> nn.LayerNorm:
-    ln = nn.LayerNorm(d["weight"].shape[0], eps=1e-5, device=device)
-    with torch.no_grad():
-        ln.weight.copy_(torch.from_numpy(d["weight"]))
-        ln.bias.copy_(torch.from_numpy(d["bias"]))
-    return ln
-
-
-def _ln(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
-    """LayerNorm in f32, cast to the compute dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
-
-
-class QuantBlock(nn.Module):
-    """One encoder block with int8 dense layers (attention through K2)."""
-
-    def __init__(self, layer: dict, n_head: int, dtype, device=None):
-        super().__init__()
-        self.n_head, self.dtype = n_head, dtype
-        self.attn_ln = _layer_norm(layer["attn_ln"], device)
-        self.mlp_ln = _layer_norm(layer["mlp_ln"], device)
-        for name, _, _ in DENSE:
-            self.add_module(name, QuantLinear(layer[name], device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, T, D = x.shape
-        H, dt = self.n_head, self.dtype
-        h = _ln(self.attn_ln, x, dt)
-        q, k, v = (getattr(self, n)(h).reshape(B, T, H, D // H).to(dt) for n in ("q", "k", "v"))
-        att = flash_mha(q, k, v, (D // H) ** -0.5).reshape(B, T, D)
-        x = x + self.out(att.to(dt)).to(dt)
-        h = self.fc1(_ln(self.mlp_ln, x, dt))
-        h = self.fc2(F.gelu(h.to(dt), approximate="none"))
-        return x + h.to(dt)
-
-
-class QuantWhisperEncoder(nn.Module):
-    """Mel (B, n_mels, 3000) -> audio states (B, 1500, D) through the int8
-    blocks; the stem and positions in ``dtype`` as the bf16 encoder."""
-
-    def __init__(self, config: WhisperConfig, qtree: dict, dtype=torch.bfloat16, device=None):
-        super().__init__()
-        self.config, self.dtype = config, dtype
-        st = qtree["stem"]
-        D = config.n_audio_state
-        kw = dict(dtype=dtype, device=device)
-        self.conv1 = nn.Conv1d(config.n_mels, D, 3, padding=1, **kw)
-        self.conv2 = nn.Conv1d(D, D, 3, stride=2, padding=1, **kw)
-        with torch.no_grad():
-            for name in ("conv1", "conv2"):
-                conv = getattr(self, name)
-                conv.weight.copy_(torch.from_numpy(st[f"{name}.weight"]))
-                conv.bias.copy_(torch.from_numpy(st[f"{name}.bias"]))
-        self.register_buffer("positional_embedding",
-                             torch.from_numpy(st["positional_embedding"]).to(device))
-        self.blocks = nn.ModuleList(QuantBlock(layer, config.n_audio_head, dtype, device)
-                                    for layer in qtree["layers"])
-        self.ln_post = _layer_norm(qtree["ln_post"], device)
-
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(self.conv1(mel.to(self.dtype)), approximate="none")
-        x = F.gelu(self.conv2(x), approximate="none").transpose(1, 2)  # (B, T, D)
-        x = x + self.positional_embedding[: x.shape[1]].to(self.dtype)
-        for block in self.blocks:
-            x = block(x)
-        return _ln(self.ln_post, x, self.dtype)
+def quant_encoder(config: WhisperConfig, state_dict: Mapping, dtype=torch.bfloat16,
+                  device="cpu") -> WhisperEncoder:
+    """The :class:`WhisperEncoder` of ``config`` whose blocks hold
+    :class:`QuantLinear` projections quantised from the f32 ``state_dict``
+    (:func:`quantize_encoder_state_dict`'s names). The stem, the position
+    table and the LayerNorms take the f32 weights, rounded into their
+    parameters' dtypes as ``load_whisper_model`` rounds them."""
+    qtree = quantize_encoder_state_dict(state_dict, config)
+    pre = "encoder." if any(k.startswith("encoder.") for k in state_dict) else ""
+    quantised = {f"blocks.{i}.{path}.{p}" for i in range(config.n_audio_layer)
+                 for _, path, _ in DENSE for p in ("weight", "bias")}
+    # no init: the dense layers are replaced and every other weight is loaded
+    encoder = WhisperEncoder(config, dtype=dtype, device="meta").to_empty(device=device)
+    loaded = encoder.load_state_dict(
+        {k[len(pre):]: torch.as_tensor(v) for k, v in state_dict.items()
+         if k.startswith(pre) and k[len(pre):] not in quantised}, strict=False)
+    if loaded.unexpected_keys or set(loaded.missing_keys) - quantised:
+        raise KeyError(f"not an encoder state dict of this config: {loaded}")
+    for block, layer in zip(encoder.blocks, qtree["layers"]):
+        for name, path, _ in DENSE:
+            parent, attr = path.split(".")
+            setattr(block.get_submodule(parent), attr, QuantLinear(layer[name], device))
+    return encoder.eval()
 
 
 def f32_encoder_state_dict(size: str = "tiny", checkpoint: Optional[str] = None,
@@ -196,7 +156,6 @@ def f32_encoder_state_dict(size: str = "tiny", checkpoint: Optional[str] = None,
     ``load_whisper_model(size, seed=seed)`` before any cast to the compute
     dtype (``Whisper.seeded_weights`` over the encoder's parameters)."""
     from wealy_tpu_torch.models.whisper.convert import load_openai_state_dict
-    from wealy_tpu_torch.models.whisper.model import Whisper
 
     if checkpoint:
         return {k: v for k, v in load_openai_state_dict(checkpoint).items()
@@ -211,10 +170,8 @@ def f32_encoder_state_dict(size: str = "tiny", checkpoint: Optional[str] = None,
 
 
 def load_quant_encoder(size: str = "tiny", checkpoint: Optional[str] = None, seed: int = 0,
-                       device="cuda", dtype=torch.bfloat16) -> QuantWhisperEncoder:
+                       device="cuda", dtype=torch.bfloat16) -> WhisperEncoder:
     """The int8 encoder of ``size`` on ``device`` (the card unless the caller
     asks for the CPU), quantised from :func:`f32_encoder_state_dict`."""
-    cfg = WHISPER_CONFIGS[size]
-    device = resolve_device(device)
-    qtree = quantize_encoder_state_dict(f32_encoder_state_dict(size, checkpoint, seed), cfg)
-    return QuantWhisperEncoder(cfg, qtree, dtype=dtype, device=device).eval()
+    return quant_encoder(WHISPER_CONFIGS[size], f32_encoder_state_dict(size, checkpoint, seed),
+                         dtype=dtype, device=resolve_device(device))
