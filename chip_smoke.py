@@ -11,9 +11,9 @@ phase 5; K4 bit-equal on every route, at the evaluate block, the serving
 blocks and tiles beyond 128 chunks, phase 9; the attention
 backward K5a/K5b against autograd of the plain attention, and on rows whose
 softmax is nearly one-hot against f32 autograd, phase 12; the decode
-attention kernel at the greedy step's cross and cache shapes, timed beside
-SDPA's backends, alone and as a step's eight calls in one CUDA graph,
-phase 27), drives
+attention kernel at the greedy step's cross (bf16 and float8) and cache
+shapes, timed beside SDPA's backends, alone and as a step's eight calls in
+one CUDA graph, phase 27), drives
 extract_song at whisper-tiny (card against CPU) and at large-v3-turbo full
 width (random weights from a seed), times the whisper-tiny embedding
 pipeline, drives ``python -m wealy_tpu_torch.cli.main evaluate`` on a
@@ -900,13 +900,14 @@ def layer_norm_add_phase(dev, gen, record, fmt_bound) -> None:
 def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
     """27. The decode attention kernel against _reference_decode_attention at
     the greedy step's shapes (large-v3-turbo, B=16): the held cross K/V
-    (headline) and the 224-position self cache up to a device position
-    (112, the mean position of a full decode; then 0 and 223, checked
-    only); timed in turns with SDPA on the same bf16 K/V (q pre-scaled, the
-    cache's positions as a boolean mask), each backend that takes the call;
-    then a step's eight calls (four layers' cross and cache, each layer its
-    own K/V) replayed as one CUDA graph, the kernel's against the fastest
-    backend's of each shape."""
+    (headline; also in float8 e4m3, which SDPA does not take) and the
+    224-position self cache up to a device position (112, the mean position
+    of a full decode; then 0 and 223, checked only); timed in turns with
+    SDPA on the same bf16 K/V (q pre-scaled, the cache's positions as a
+    boolean mask), each backend that takes the call; then a step's eight
+    calls (four layers' cross and cache, each layer its own K/V) replayed
+    as one CUDA graph, the kernel's against the fastest backend's of each
+    shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from wealy_tpu_torch.ops import bf16_agreement
@@ -963,10 +964,15 @@ def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
         return start.elapsed_time(end) / iters
 
     B, H = 16, 20
-    step_calls = {}
-    for case, (tk, at) in {"cross": (1500, None), "cache": (224, 112)}.items():
-        sets = [tuple(torch.randn(s, device=dev, generator=gen).bfloat16() for s in (
-            (B, 1, H, 64), (B, H, tk, 64), (B, H, tk, 64))) for _ in range(4)]
+    f8 = torch.float8_e4m3fn
+    step_calls, drawn = {}, {}
+    for case, (tk, at, kv) in {"cross": (1500, None, torch.bfloat16),
+                               "cache": (224, 112, torch.bfloat16),
+                               "cross f8": (1500, None, f8)}.items():
+        if tk not in drawn:
+            drawn[tk] = [tuple(torch.randn(s, device=dev, generator=gen).bfloat16() for s in (
+                (B, 1, H, 64), (B, H, tk, 64), (B, H, tk, 64))) for _ in range(4)]
+        sets = [(q_, k_.to(kv), v_.to(kv)) for q_, k_, v_ in drawn[tk]]
         q, k, v = sets[0]
         err, cos = 0.0, 1.0
         for p in ((at, 0, tk - 1) if at is not None else (None,)):
@@ -979,7 +985,7 @@ def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
             err, cos = max(err, e), min(cos, c)
         pos = None if at is None else torch.tensor([at], device=dev)
         mask = None if pos is None else da.position_mask(pos, tk)
-        lib, lib_ok = sdpa_fns(q, k, v, pos)
+        lib, lib_ok = sdpa_fns(q, k, v, pos) if kv == torch.bfloat16 else ({}, {})
         med = turns_ms({"kernel": lambda: da.decode_attention(q, k, v, scale, pos),
                         "plain": lambda: da._reference_decode_attention(q, k, v, scale, mask),
                         **lib},
@@ -987,8 +993,14 @@ def decode_attention_phase(dev, gen, smi: str, record, fmt_bound) -> None:
                        {"kernel": 50, "plain": 10, **{n: 50 for n in lib}})
         fastest = min(lib, key=med.get) if lib else None
         n_read = tk if at is None else at + 1
-        bnd = bound(2 * B * H * n_read * 64 * 2 + 2 * B * H * 64 * 2, 4 * B * H * n_read * 64,
-                    "f32")
+        bnd = bound(2 * B * H * n_read * 64 * k.element_size() + 2 * B * H * 64 * 2,
+                    4 * B * H * n_read * 64, "f32")
+        if kv != torch.bfloat16:
+            say(f"[27 decode_attention] {case} B={B} H={H} Tk={tk}: max_abs_err {err:.3g} "
+                f"min_cos {cos:.6f}; medians of 3 rounds of turns: kernel {med['kernel']:.4f} ms "
+                f"({100 * bnd[0] / med['kernel']:.1f}% of the bound), plain {med['plain']:.4f} "
+                f"ms; bound {bnd[0]:.4f} ms ({bnd[1]}); SDPA takes no float8")
+            continue
         step_calls[case] = (
             [lambda s=s_, pos=pos: da.decode_attention(s[0], s[1], s[2], scale, pos)
              for s_ in sets],

@@ -4,19 +4,22 @@
 On the card (marked ``cuda``; each skips without one): the kernel against
 ``_reference_decode_attention`` at the extraction cells' shapes (turbo's 20
 heads and medium's 16, Tk 1500, B 16 and 32) and at odd ones (Tk around the
-256-position chunk, 6 heads, cache positions 0, 1 and ``max_len`` - 1 with
-caches of 224 and 448 positions), bf16 and float8 e4m3 storage; a repeat is
-bit-equal; the step's route is chosen by dtype (bf16 and float8 e4m3 to the
-kernel, float8 e5m2 and f32 to the plain path) and a layout the kernel
-cannot read raises instead of falling back; a teacher-forced greedy decode
-at turbo's decoder width through the kernel route against the plain route
-along the same tokens (hidden states and logits); the graphed greedy decode
-against the eager one, both through the kernel, each counting its
-launches.
+256-position chunk and at the largest cluster, 2048; 6 heads; cache
+positions 0, 1 and ``max_len`` - 1 with caches of 224 and 448 positions, and
+the 448 cache on both sides of its chunk edge), bf16 and float8 e4m3
+storage; a K/V past ``MAX_TK`` raises; a repeat is bit-equal; a call
+captured in a CUDA graph is one launch, counted by its cluster size; the
+step's route is chosen by dtype (bf16 and float8 e4m3 to the kernel, float8
+e5m2 and f32 to the plain path) and a layout the kernel cannot read raises
+instead of falling back; a teacher-forced greedy decode at turbo's decoder
+width through the kernel route against the plain route along the same
+tokens (hidden states and logits); the graphed greedy decode against the
+eager one, both through the kernel, each counting its launches and their
+clusters.
 
-On the CPU: the wrapper's plain route, the workspace layout, the held
-storage of the cross K/V and the logit table, and the logits of the bf16
-table against its f32 upcast.
+On the CPU: the wrapper's plain route, the cluster size of a row, the
+step's route by length, the held storage of the cross K/V and the logit
+table, and the logits of the bf16 table against its f32 upcast.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -25,6 +28,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 import threading
 import time
+from collections import Counter
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -93,9 +98,10 @@ def _assert_close(got, want):
 
 def _kernel_and_plain(q, k, v, pos=None):
     mask = None if pos is None else da.position_mask(pos, k.shape[2])
-    before = da.decode_attention.launches
+    before, clusters = da.decode_attention.launches, Counter(da.decode_attention.clusters)
     got = da.decode_attention(q, k, v, SCALE, pos)
     assert da.decode_attention.launches == before + 1
+    assert da.decode_attention.clusters - clusters == {da.cluster_size(k.shape[2]): 1}
     return got, da._reference_decode_attention(q, k, v, SCALE, mask)
 
 
@@ -114,7 +120,7 @@ def test_kernel_at_the_cells_cross_shapes(dev, H, B, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, F8], ids=["bf16", "f8"])
 @pytest.mark.parametrize("B,H,tk", [(1, 6, 1), (2, 6, 7), (3, 6, 255), (2, 6, 256), (2, 6, 257),
-                                    (1, 20, 300), (2, 6, 513), (1, 6, 1499)])
+                                    (1, 20, 300), (2, 6, 513), (1, 6, 1499), (2, 6, 2048)])
 def test_kernel_at_odd_cross_shapes(dev, B, H, tk, dtype):
     q, k, v = _operands(dev, B, H, tk, dtype, seed=tk)
     got, want = _kernel_and_plain(q, k, v)
@@ -135,6 +141,61 @@ def test_kernel_at_cache_positions(dev, at, max_len, dtype):
     _assert_close(got, want)
     if at == 0:  # one valid row: the output is that row of v, rounded
         assert torch.equal(got[:, 0], v[:, :, 0].float().to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F8], ids=["bf16", "f8"])
+@pytest.mark.parametrize("at", [0, 255, 256, 447])
+def test_kernel_at_a_448_cache_across_its_chunk_edge(dev, at, dtype):
+    """A 448-position cache is a cluster of two blocks: up to position 255
+    the second block holds no valid row (its statistics are empty), from 256
+    on both do."""
+    pos = torch.tensor([at], device=dev)
+    q, k, v = _operands(dev, 4, 6, 448, dtype, seed=1000 + at)
+    got, want = _kernel_and_plain(q, k, v, pos)
+    _assert_close(got, want)
+    if at == 0:
+        assert torch.equal(got[:, 0], v[:, :, 0].float().to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_a_kv_past_max_tk_raises(dev):
+    """Tk 2049 needs a cluster of 9 blocks, past the portable 8: the step
+    sends it to the plain path and the wrapper refuses it."""
+    q, k, v = _operands(dev, 1, 6, da.MAX_TK + 1)
+    assert da.MAX_TK == 2048 and not da.takes(q, k)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, SCALE)
+
+
+@pytest.mark.cuda
+def test_a_captured_call_is_one_clustered_launch(dev):
+    """Calls captured in a CUDA graph (the cross K/V, a cluster of 6; the
+    224 cache, 1; the 448 cache, 2) are one kernel launch each, eager and
+    replayed, and no scores pass; the wrapper counts each at its cluster
+    size; a replay gives the eager outputs bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for i, (tk, at) in enumerate(((1500, None), (224, 112), (448, 300))):
+        q, k, v = _operands(dev, 16, 20, tk, seed=i)
+        calls.append((q, k, v, None if at is None else torch.tensor([at], device=dev)))
+    with profile(activities=[ProfilerActivity.CUDA]) as eager_trace:
+        eager = [da.decode_attention(q, k, v, SCALE, pos) for q, k, v, pos in calls]
+        torch.cuda.synchronize()
+    launches, clusters = da.decode_attention.launches, Counter(da.decode_attention.clusters)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [da.decode_attention(q, k, v, SCALE, pos) for q, k, v, pos in calls]
+    assert da.decode_attention.launches - launches == 3
+    assert da.decode_attention.clusters - clusters == {6: 1, 1: 1, 2: 1}
+    with profile(activities=[ProfilerActivity.CUDA]) as replay_trace:
+        graph.replay()
+        torch.cuda.synchronize()
+    for trace in (eager_trace, replay_trace):
+        names = [e.name for e in trace.events() if "decode_attn" in e.name]
+        assert len(names) == 3 and not any("scores" in n for n in names), names
+    assert all(torch.equal(o, e) for o, e in zip(outs, eager))
 
 
 @pytest.mark.cuda
@@ -287,16 +348,20 @@ def test_graph_and_eager_decode_both_through_the_kernel(dev, monkeypatch, kv):
     shapes: both run the kernel, so the tokens are equal and the states
     bit-equal; the held cross K/V is bf16 (or float8) and the held logit
     table bf16. Both count the kernel's launches: the graphed decode its
-    two warm-up steps and each replay's calls, the eager one each call."""
+    two warm-up steps and each replay's calls (and their clusters by size),
+    the eager one each call."""
     model, states = _turbo(dev), _states(dev, 16)
     kw = {} if kv == "bf16" else {"cross_kv_dtype": F8, "self_kv_dtype": F8}
     prompt = tgen.default_prompt(TURBO_DECODER, language=0)
     per_step, steps = 2 * TURBO_DECODER.n_text_layer, 224 - 1 - len(prompt)
     t0 = time.perf_counter()
-    start = da.decode_attention.launches
+    start, clusters = da.decode_attention.launches, Counter(da.decode_attention.clusters)
     graphed = tgen.greedy_decode(model, states, TURBO_DECODER, prompt=prompt, max_len=224, **kw)
     torch.cuda.synchronize()
     assert da.decode_attention.launches - start == per_step * (2 + steps)
+    # every cross call a cluster of 6 (1500 frames), every cache call of 1 (224)
+    layers = TURBO_DECODER.n_text_layer * (2 + steps)
+    assert da.decode_attention.clusters - clusters == {6: layers, 1: layers}
     ns = {e.n for e in profiling.spans(since=t0)
           if e.name == "whisper.decode_step" and e.thread == threading.get_ident()}
     assert ns == {1}
@@ -316,13 +381,23 @@ def test_graph_and_eager_decode_both_through_the_kernel(dev, monkeypatch, kv):
 
 # --- on the CPU -----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,H,tk,n_split", [(16, 20, 1500, 6), (2, 6, 256, 1), (2, 6, 257, 2),
-                                            (1, 1, 1, 1)])
-def test_workspace_layout(B, H, tk, n_split):
-    """One kernel up to a chunk; past it each chunk's 256 scores, (max,
-    sum) and 64 partial outputs, and a ticket a row."""
-    want = 0 if n_split == 1 else B * H * n_split * (256 + 2 + 64) + B * H
-    assert da.workspace_floats(B * H, tk) == want
+@pytest.mark.parametrize("tk,blocks", [(1, 1), (256, 1), (257, 2), (1500, 6), (2048, 8)])
+def test_cluster_size(tk, blocks):
+    """One block a 256-position chunk of the row, at most the portable
+    cluster size of 8: the audio frames' 1500 a cluster of 6."""
+    assert da.cluster_size(tk) == blocks
+    assert blocks <= da.MAX_TK // da.CHUNK == 8
+
+
+@pytest.mark.parametrize("tk,kernel", [(224, True), (1500, True), (2048, True), (2049, False),
+                                       (32768, False)])
+def test_takes_sends_a_kv_past_max_tk_to_the_plain_path(tk, kernel):
+    """The step's route by length: K/V of at most ``MAX_TK`` positions go
+    to the kernel, longer ones to the plain path (card operands, stood in
+    for by their dtype and shape)."""
+    q = SimpleNamespace(is_cuda=True, dtype=torch.bfloat16, shape=(16, 1, 20, 64))
+    k = SimpleNamespace(dtype=torch.bfloat16, shape=(16, 20, tk, 64))
+    assert da.takes(q, k) == kernel
 
 
 @pytest.mark.parametrize("at", [0, 3, 9])

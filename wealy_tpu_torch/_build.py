@@ -61,9 +61,8 @@ SIGNATURES = {
     "wealy_layer_norm": [_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
     # x, y, scale, bias, s, out, rows, D, is_bf16, eps, route, vec, lanes, per_lane, stream
     "wealy_add_layer_norm": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
-    # q, k, v, pos (or null), out, workspace (or null), batch_heads, tk, head_dim, kv_kind,
-    # scale, stream
-    "wealy_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, pos (or null), out, batch_heads, tk, head_dim, kv_kind, scale, stream
+    "wealy_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

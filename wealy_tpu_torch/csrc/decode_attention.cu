@@ -22,29 +22,45 @@
 // What bounds it on an H100: device memory. Each K and V byte is used once
 // for one multiply-add (2 operations a bf16 byte, against the card's 295):
 // at turbo, B = 16 the cross K/V is 123 MB a layer in bf16, 37 us at 3.35
-// TB/s. The design streams K and V once in 16-byte loads, keeps every SM busy
-// and keeps the rounding of the probabilities exact:
+// TB/s. The design is one launch a call that reads K and V once, keeps a
+// row ahead of them in flight, and keeps the rounding of the probabilities
+// exact:
 //
-// - A block of 128 threads owns kChunk = 256 positions of one (b, h): 8 lanes
-//   a row, 8 values a lane, 16 rows a pass, all 16 passes' loads issued
-//   before the first product (streaming, evict-first). The Tk axis is split
-//   over blocks (flash-decoding): at turbo, B = 16 the cross attention runs
-//   6 x 320 blocks.
+// - A block of 128 threads owns kChunk = 256 positions of a row: 8 lanes a
+//   position, 8 values a lane, 16 positions a pass. Its K chunk goes to
+//   registers (16 streaming 16-byte loads a thread) and its V chunk to
+//   shared memory (cp.async, 16 bytes a copy), both issued together, so V
+//   is in flight while the scores form. (On an H100 at turbo's cross shape,
+//   B = 16: one bulk copy of each chunk onto an mbarrier, 0.0546 ms with a
+//   cluster a row and 0.0585 with the walk below; K through shared memory
+//   by cp.async as well, 0.0531; this form, 0.0500.)
 // - Rounding p to bf16 needs the row's global max and sum before any p is
-//   formed, so a split row takes two kernels: decode_attn_scores_kernel
-//   writes each chunk's f32 scores (1.9 MB a layer at turbo, B = 16: about
-//   1% of the K/V bytes, mostly served from L2) and its (max, sum of exp);
-//   decode_attn_kernel combines the row's statistics, forms p rounded to
-//   bf16, multiplies V and writes its chunk's f32 partial output, and the
-//   last block of a row to finish (an atomic ticket) sums the partials in
-//   chunk order and writes the bf16 row. The ticket is reset by the scores
-//   kernel, so nothing is cleared between calls.
-// - A row of at most kChunk positions (the self-attention cache at
-//   max_len <= 256) takes decode_attn_kernel alone: one block a row keeps
-//   its scores in shared memory.
+//   formed. A row of Tk positions is one thread-block cluster of
+//   ceil(Tk / kChunk) blocks, at most kMaxSplit = 8 (the portable cluster
+//   size; Tk <= 2048, every Whisper shape: 1500 audio frames, caches of at
+//   most 448), launched with the cluster size as a launch attribute. Each
+//   block keeps its chunk's scores in shared memory and publishes its
+//   (max, sum of exp); after a cluster barrier every block reads the row's
+//   statistics from its peers' shared memory (distributed shared memory) in
+//   rank order, forms p and multiplies its V chunk, and writes its 64-float
+//   share of the output into rank 0's shared memory; after a second cluster
+//   barrier (which also keeps every peer's shared memory alive until all
+//   reads of it are done) rank 0 sums the shares in rank order and writes
+//   the bf16 row. Nothing goes through device memory but K, V, q and the
+//   output. A row of at most kChunk positions (the 224-position self cache)
+//   is a cluster of one block: no cluster barrier, its own statistics.
+// - The grid holds as many clusters as fit on the card at once (at most one
+//   a row); a cluster takes rows y, y + clusters, ... and each block issues
+//   the next row's K loads as soon as this row's scores are formed, and its
+//   V copies as soon as this row's product is done. At turbo, B = 16 (320
+//   rows of 6 blocks; in bf16 128 registers a thread, so 4 blocks an SM)
+//   that is at most 132 x 4 / 6 = 88 clusters.
 //
 // Sums run in a fixed order (no floating-point atomics): a repeat is
-// bit-equal.
+// bit-equal, and the lane mapping and sum orders are those of the two-launch
+// design it replaced (scores and statistics per chunk, statistics combined
+// in chunk order, shares summed in chunk order), so its outputs are too.
+#include <cooperative_groups.h>
 #include <cuda_fp8.h>
 
 #include <cmath>
@@ -53,6 +69,8 @@
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int kDh = 64;                          // head width (HEAD_DIM)
@@ -63,20 +81,18 @@ constexpr int kRowsPerWarp = 32 / kLanes;        // 4
 constexpr int kRowsPerPass = kThreads / kLanes;  // 16
 constexpr int kChunk = 256;                      // positions a block (CHUNK)
 constexpr int kPasses = kChunk / kRowsPerPass;   // 16
-constexpr int kStatsFloats = 2;                  // (max, sum of exp) a chunk
-constexpr int kMaxSplit = 128;                   // chunks a row: Tk <= 32768 (MAX_TK)
+constexpr int kMaxSplit = 8;                     // blocks a cluster: Tk <= 2048 (MAX_TK)
 
 typedef __nv_fp8_e4m3 f8;
 
-// Row<T>: 8 consecutive values of one row: a streaming load of their raw
-// bits and their f32 values
+// Row<T>: 8 consecutive values of one row: their raw bits and their f32
+// values
 template <typename T>
 struct Row;
 
 template <>
 struct Row<bf16> {
   using Raw = uint4;
-  __device__ static Raw load(const bf16* p) { return __ldcs(reinterpret_cast<const uint4*>(p)); }
   __device__ static void unpack(const Raw& r, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
@@ -91,7 +107,6 @@ struct Row<bf16> {
 template <>
 struct Row<f8> {
   using Raw = uint2;
-  __device__ static Raw load(const f8* p) { return __ldcs(reinterpret_cast<const uint2*>(p)); }
   __device__ static void unpack(const Raw& r, float* f) {
     const __nv_fp8x2_storage_t* s = reinterpret_cast<const __nv_fp8x2_storage_t*>(&r);
 #pragma unroll
@@ -121,46 +136,65 @@ __device__ __forceinline__ int pass_row(int pass) {
   return pass * kRowsPerPass + warp * kRowsPerWarp + lane / kLanes;
 }
 
-// the 16 passes' raw values of rows [t0, t0 + kChunk) of `x` (decode layout,
-// row bh), rows at or past n left zero
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* x, int bh, int tk, int t0, int n,
-                                           typename Row<T>::Raw (&buf)[kPasses]) {
+// this thread's 8 values of row bh of q
+__device__ __forceinline__ uint4 q_values(const bf16* q, int bh) {
   const int g = threadIdx.x & (kLanes - 1);
-  const T* base = x + static_cast<size_t>(bh) * tk * kDh + g * 8;
+  return *reinterpret_cast<const uint4*>(q + static_cast<size_t>(bh) * kDh + g * 8);
+}
+
+// this thread's values of the chunk's rows [t0, t0 + kChunk) of row bh of
+// k, one pass each (streaming loads; zero at or past the chunk's `rows`)
+template <typename T>
+__device__ __forceinline__ void load_k(typename Row<T>::Raw (&buf)[kPasses], const T* k, int bh,
+                                       int tk, int t0, int rows) {
+  using Raw = typename Row<T>::Raw;
+  const int g = threadIdx.x & (kLanes - 1);
+  const T* base = k + (static_cast<size_t>(bh) * tk + t0) * kDh + g * 8;
 #pragma unroll
   for (int i = 0; i < kPasses; ++i) {
-    const int t = t0 + pass_row(i);
-    buf[i] = typename Row<T>::Raw{};
-    if (t < n) buf[i] = Row<T>::load(base + static_cast<size_t>(t) * kDh);
+    const int r = pass_row(i);
+    buf[i] = Raw{};
+    if (r < rows) buf[i] = __ldcs(reinterpret_cast<const Raw*>(base + r * kDh));
   }
 }
 
-// scores of rows [t0, t0 + kChunk) into sc (shared, kChunk floats): q
-// rounded to bf16 after the scale, the dot product in f32; -inf at or past n
+// the chunk's `rows` rows of row bh of v into vs (shared memory) as 16-byte
+// cp.async copies by every thread, one commit group
 template <typename T>
-__device__ void chunk_scores(const bf16* q, const T* k, float scale, int bh, int tk, int t0,
-                             int n, float* sc) {
+__device__ __forceinline__ void copy_v(T* vs, const T* v, int bh, int tk, int t0, int rows) {
+  const int pieces = rows * kDh * static_cast<int>(sizeof(T)) / 16;
+  const char* src = reinterpret_cast<const char*>(v + (static_cast<size_t>(bh) * tk + t0) * kDh);
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(vs));
+  for (int i = threadIdx.x; i < pieces; i += kThreads)
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;" ::"r"(dst + 16 * i),
+                 "l"(src + 16 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// scores of the chunk's rows into sc (kChunk floats): q (this thread's
+// values) rounded to bf16 after the scale, the dot product in f32 against
+// the K values; -inf at or past rows
+template <typename T>
+__device__ void chunk_scores(const uint4& q, const typename Row<T>::Raw (&kv)[kPasses],
+                             float scale, int rows, float* sc) {
   const int g = threadIdx.x & (kLanes - 1);
   float qs[8];
-  Row<bf16>::unpack(*reinterpret_cast<const uint4*>(q + static_cast<size_t>(bh) * kDh + g * 8),
-                    qs);
+  Row<bf16>::unpack(q, qs);
 #pragma unroll
   for (int j = 0; j < 8; ++j) qs[j] = round_bf16(qs[j] * scale);
-  typename Row<T>::Raw buf[kPasses];
-  load_chunk<T>(k, bh, tk, t0, n, buf);
 #pragma unroll
   for (int i = 0; i < kPasses; ++i) {
+    const int r = pass_row(i);
     float kf[8];
-    Row<T>::unpack(buf[i], kf);
+    Row<T>::unpack(kv[i], kf);
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) s = fmaf(qs[j], kf[j], s);
     s += __shfl_xor_sync(FULL, s, 1);
     s += __shfl_xor_sync(FULL, s, 2);
     s += __shfl_xor_sync(FULL, s, 4);
-    const int r = pass_row(i);
-    if (g == 0) sc[r] = t0 + r < n ? s : -INFINITY;
+    if (g == 0) sc[r] = r < rows ? s : -INFINITY;
   }
 }
 
@@ -192,151 +226,140 @@ __device__ float2 chunk_stats(const float* sc, float* red) {
   return make_float2(m, s);
 }
 
-// a split row's first pass: the chunk's scores and statistics; the row's
-// ticket reset by its first chunk
+// one block a chunk of a row, one cluster (gridDim.x blocks, rank =
+// blockIdx.x) a row at a time: rows blockIdx.y, blockIdx.y + gridDim.y, ...
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_attn_scores_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
-                              const long long* __restrict__ pos, float scale, int tk,
-                              int n_split, float* __restrict__ scores,
-                              float2* __restrict__ stats, unsigned* __restrict__ tickets) {
-  __shared__ float sc[kChunk];
-  __shared__ float red[kWarps];
-  const int split = blockIdx.x, bh = blockIdx.y, t0 = split * kChunk;
-  const int n = valid_rows(pos, tk);
-  chunk_scores<T>(q, k, scale, bh, tk, t0, n, sc);
-  __syncthreads();
-  const float2 st = chunk_stats(sc, red);
-  float* row = scores + (static_cast<size_t>(bh) * n_split + split) * kChunk;
-  for (int i = threadIdx.x; i < kChunk; i += kThreads) row[i] = sc[i];
-  if (threadIdx.x == 0) {
-    stats[bh * n_split + split] = st;
-    if (split == 0) tickets[bh] = 0;
-  }
-}
-
-// the probabilities of a chunk and its share of p.v; kSingle: the whole row
-// in this block (its scores computed here), else the row's second pass
-template <typename T, bool kSingle>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const long long* __restrict__ pos, float scale,
-                       int tk, int n_split, const float* __restrict__ scores,
-                       const float2* __restrict__ stats, unsigned* __restrict__ tickets,
-                       float* __restrict__ partial, bf16* __restrict__ out) {
+                       int tk, int batch_heads, bf16* __restrict__ out) {
+  __shared__ __align__(16) T vs[kChunk * kDh];
   __shared__ float sc[kChunk];
   __shared__ float red[kWarps];
   __shared__ float acc_w[kWarps][kDh];
-  __shared__ float2 row_stats[kSingle ? 1 : kMaxSplit];
-  __shared__ bool last;
-  const int split = blockIdx.x, bh = blockIdx.y, t0 = split * kChunk;
-  const int n = valid_rows(pos, tk);
+  __shared__ float2 stats;                  // this chunk's (max, sum), read by the cluster
+  __shared__ float2 row_stats[kMaxSplit];   // the cluster's, in rank order
+  __shared__ float shares[kMaxSplit][kDh];  // rank 0's: each rank's share of the output
+  const int n_split = gridDim.x, split = blockIdx.x, t0 = split * kChunk;
+  const int rows = min(max(valid_rows(pos, tk) - t0, 0), kChunk);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane & (kLanes - 1);
-  typename Row<T>::Raw buf[kPasses];
-  float m, s;
-  if (kSingle) {
-    chunk_scores<T>(q, k, scale, bh, tk, t0, n, sc);
+  const int d = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  typename Row<T>::Raw kv[kPasses];
+  load_k<T>(kv, k, blockIdx.y, tk, t0, rows);
+  copy_v<T>(vs, v, blockIdx.y, tk, t0, rows);
+  uint4 qv = q_values(q, blockIdx.y);
+  for (int bh = blockIdx.y; bh < batch_heads; bh += gridDim.y) {
+    const int next = bh + gridDim.y;
+    chunk_scores<T>(qv, kv, scale, rows, sc);
     __syncthreads();
+    if (next < batch_heads) {  // the next row's K and q in flight from here
+      load_k<T>(kv, k, next, tk, t0, rows);
+      qv = q_values(q, next);
+    }
     const float2 st = chunk_stats(sc, red);
-    m = st.x;
-    s = st.y;
-    load_chunk<T>(v, bh, tk, t0, n, buf);
-  } else {
-    load_chunk<T>(v, bh, tk, t0, n, buf);  // in flight while the row's statistics combine
-    const float* row = scores + (static_cast<size_t>(bh) * n_split + split) * kChunk;
-    for (int i = threadIdx.x; i < kChunk; i += kThreads) sc[i] = row[i];
-    for (int i = threadIdx.x; i < n_split; i += kThreads) row_stats[i] = stats[bh * n_split + i];
+    float m = st.x, s = st.y;
+    if (n_split > 1) {
+      if (threadIdx.x == 0) stats = st;
+      cluster.sync();
+      if (threadIdx.x < n_split)
+        row_stats[threadIdx.x] = *cluster.map_shared_rank(&stats, threadIdx.x);
+      __syncthreads();
+      m = -INFINITY;
+      for (int i = 0; i < n_split; ++i) m = fmaxf(m, row_stats[i].x);
+      s = 0.f;
+      for (int i = 0; i < n_split; ++i) {
+        const float2 r = row_stats[i];
+        if (r.x != -INFINITY) s += r.y * expf(r.x - m);
+      }
+    }
+    for (int i = threadIdx.x; i < kChunk; i += kThreads)
+      sc[i] = i < rows ? round_bf16(expf(sc[i] - m) / s) : 0.f;
+    asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
-    m = -INFINITY;
-    for (int i = 0; i < n_split; ++i) m = fmaxf(m, row_stats[i].x);
-    s = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const float2 st = row_stats[i];
-      if (st.x != -INFINITY) s += st.y * expf(st.x - m);
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int r = pass_row(i);
+      typename Row<T>::Raw raw{};
+      if (r < rows) raw = *reinterpret_cast<const typename Row<T>::Raw*>(vs + r * kDh + g * 8);
+      float vf[8];
+      Row<T>::unpack(raw, vf);
+      const float p = sc[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = fmaf(p, vf[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[j] += __shfl_xor_sync(FULL, acc[j], 8);
+      acc[j] += __shfl_xor_sync(FULL, acc[j], 16);
+    }
+    if (lane < kLanes) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc_w[warp][g * 8 + j] = acc[j];
+    }
+    __syncthreads();
+    if (next < batch_heads) copy_v<T>(vs, v, next, tk, t0, rows);  // vs read: the next V
+    float o = 0.f;
+    if (d < kDh) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) o += acc_w[w][d];
+    }
+    if (n_split == 1) {
+      if (d < kDh) out[static_cast<size_t>(bh) * kDh + d] = __float2bfloat16_rn(o);
+      continue;
+    }
+    if (d < kDh) cluster.map_shared_rank(&shares[0][0], 0)[split * kDh + d] = o;
+    cluster.sync();
+    if (split == 0 && d < kDh) {
+      float sum = 0.f;
+      for (int i = 0; i < n_split; ++i) sum += shares[i][d];
+      out[static_cast<size_t>(bh) * kDh + d] = __float2bfloat16_rn(sum);
     }
   }
-  for (int i = threadIdx.x; i < kChunk; i += kThreads)
-    sc[i] = t0 + i < n ? round_bf16(expf(sc[i] - m) / s) : 0.f;
-  __syncthreads();
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    float vf[8];
-    Row<T>::unpack(buf[i], vf);
-    const float p = sc[pass_row(i)];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = fmaf(p, vf[j], acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j] += __shfl_xor_sync(FULL, acc[j], 8);
-    acc[j] += __shfl_xor_sync(FULL, acc[j], 16);
-  }
-  if (lane < kLanes) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc_w[warp][g * 8 + j] = acc[j];
-  }
-  __syncthreads();
-  const int d = threadIdx.x;
-  float o = 0.f;
-  if (d < kDh) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += acc_w[w][d];
-  }
-  if (kSingle) {
-    if (d < kDh) out[static_cast<size_t>(bh) * kDh + d] = __float2bfloat16_rn(o);
-    return;
-  }
-  if (d < kDh) partial[(static_cast<size_t>(bh) * n_split + split) * kDh + d] = o;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&tickets[bh], 1u) == static_cast<unsigned>(n_split - 1);
-  __syncthreads();
-  if (!last || d >= kDh) return;
-  __threadfence();
-  float sum = 0.f;
-  for (int i = 0; i < n_split; ++i)
-    sum += __ldcg(&partial[(static_cast<size_t>(bh) * n_split + i) * kDh + d]);
-  out[static_cast<size_t>(bh) * kDh + d] = __float2bfloat16_rn(sum);
 }
 
+// the clusters of `config` that fit on the card at once, asked once a
+// device and cluster size (0 where the query fails)
+template <typename T>
+int resident_clusters(const cudaLaunchConfig_t& config, int n_split) {
+  static int known[16][kMaxSplit + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int* slot = dev < 16 ? &known[dev][n_split] : nullptr;
+  if (slot != nullptr && *slot > 0) return *slot;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, decode_attn_kernel<T>, &config) != cudaSuccess) {
+    cudaGetLastError();  // clear it: the launch below reports its own
+    return 0;
+  }
+  if (slot != nullptr) *slot = n;
+  return n;
+}
+
+// one launch: grid (n_split, clusters) in clusters of n_split blocks, as
+// many clusters as fit at once and at most one a row
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const long long* pos, void* out,
-                   float* workspace, int batch_heads, int tk, float scale, cudaStream_t stream) {
+                   int batch_heads, int tk, float scale, cudaStream_t stream) {
   const int n_split = (tk + kChunk - 1) / kChunk;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const T* kb = static_cast<const T*>(k);
-  const T* vb = static_cast<const T*>(v);
-  bf16* ob = static_cast<bf16*>(out);
-  const dim3 grid(n_split, batch_heads);
-  if (n_split == 1) {
-    decode_attn_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        qb, kb, vb, pos, scale, tk, 1, nullptr, nullptr, nullptr, nullptr, ob);
-    return cudaGetLastError();
-  }
-  // workspace: scores (bh, n_split, kChunk), stats (bh, n_split) float2,
-  // partial outputs (bh, n_split, kDh), tickets (bh)
-  const size_t rows = static_cast<size_t>(batch_heads) * n_split;
-  float* scores = workspace;
-  float2* stats = reinterpret_cast<float2*>(scores + rows * kChunk);
-  float* partial = reinterpret_cast<float*>(stats + rows);
-  unsigned* tickets = reinterpret_cast<unsigned*>(partial + rows * kDh);
-  decode_attn_scores_kernel<T><<<grid, kThreads, 0, stream>>>(qb, kb, pos, scale, tk, n_split,
-                                                              scores, stats, tickets);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_attn_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-      qb, kb, vb, pos, scale, tk, n_split, scores, stats, tickets, partial, ob);
-  return cudaGetLastError();
-}
-
-// floats of workspace a call at (batch_heads, tk) needs, 0 for one kernel
-// (ops/decode_attention.py::workspace_floats)
-long long workspace_floats(int batch_heads, int tk) {
-  const long long n_split = (tk + kChunk - 1) / kChunk;
-  if (n_split <= 1) return 0;
-  const long long rows = static_cast<long long>(batch_heads) * n_split;
-  return rows * (kChunk + kStatsFloats + kDh) + batch_heads;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_split, 1);
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const int fit = resident_clusters<T>(config, n_split);
+  config.gridDim.y = fit > 0 && fit < batch_heads ? fit : batch_heads;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, decode_attn_kernel<T>, static_cast<const bf16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, scale, tk, batch_heads, static_cast<bf16*>(out));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -344,17 +367,14 @@ long long workspace_floats(int batch_heads, int tk) {
 // q (B, 1, H, 64) bf16; k, v (B, H, tk, 64) in `kv_kind` (0 bf16, 1 float8
 // e4m3); pos a (1,) int64 device index or null; out (B, H, 64) bf16
 WEALY_API int wealy_decode_attention(const void* q, const void* k, const void* v, const void* pos,
-                                     void* out, void* workspace, int batch_heads, int tk,
-                                     int head_dim, int kv_kind, float scale, void* stream) {
+                                     void* out, int batch_heads, int tk, int head_dim,
+                                     int kv_kind, float scale, void* stream) {
   if (head_dim != kDh || batch_heads <= 0 || batch_heads > 65535 || tk <= 0 ||
       tk > kMaxSplit * kChunk)
     return cudaErrorInvalidValue;
-  if (workspace_floats(batch_heads, tk) > 0 && workspace == nullptr)
-    return cudaErrorInvalidValue;
   const long long* p = static_cast<const long long*>(pos);
-  float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_kind == 0) return launch<bf16>(q, k, v, p, out, ws, batch_heads, tk, scale, s);
-  if (kv_kind == 1) return launch<f8>(q, k, v, p, out, ws, batch_heads, tk, scale, s);
+  if (kv_kind == 0) return launch<bf16>(q, k, v, p, out, batch_heads, tk, scale, s);
+  if (kv_kind == 1) return launch<f8>(q, k, v, p, out, batch_heads, tk, scale, s);
   return cudaErrorInvalidValue;
 }

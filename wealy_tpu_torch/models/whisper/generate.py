@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from collections import Counter
 from typing import Optional, Sequence
 
 import torch
@@ -191,12 +192,12 @@ class _Buffers:
     :meth:`~wealy_tpu_torch.models.whisper.model.WhisperDecoder.logit_table`);
     ``suppress`` (V,) bool or None; ``finished`` (B,) bool, ``sum_logprob``
     (B,) f32 and ``pos`` (1,) int64, the position of the step's input token;
-    ``launches``, the decode attention calls a replay of the captured step
-    runs (0 until :func:`_capture`). ``xa_kv`` and ``suppress`` are held as
-    given."""
+    ``launches`` and ``clusters``, the decode attention calls a replay of
+    the captured step runs, in all and by cluster size (none until
+    :func:`_capture`). ``xa_kv`` and ``suppress`` are held as given."""
 
     __slots__ = ("tokens", "hidden", "caches", "xa_kv", "logit_weight", "suppress", "finished",
-                 "sum_logprob", "pos", "launches")
+                 "sum_logprob", "pos", "launches", "clusters")
 
     def __init__(self, model: Whisper, config: WhisperConfig, B: int, max_len: int, xa_kv,
                  self_kv_dtype, suppress):
@@ -212,6 +213,7 @@ class _Buffers:
         self.sum_logprob = torch.zeros(B, dtype=torch.float32, device=dev)
         self.pos = torch.zeros(1, dtype=torch.long, device=dev)
         self.launches = 0
+        self.clusters = Counter()
 
     def refill(self, model: Whisper, xa_kv, suppress) -> None:
         """Copy a new call's operands in: the cross K/V (``xa_kv``, cast
@@ -267,10 +269,10 @@ def _graphable(model: Whisper, dev: torch.device, temperature: float) -> bool:
 def _capture(model: Whisper, s: _Buffers, eot: int) -> torch.cuda.CUDAGraph:
     """A CUDA graph of one greedy step over ``s``, captured after two warm-up
     steps on a side stream (they write position 1; :meth:`_Buffers.start`
-    clears them); ``s.launches`` is set to the decode attention calls a
-    replay runs (the capture itself runs none, so their count is left as it
-    was). Thread-local capture: the feed's threads may use the card
-    meanwhile."""
+    clears them); ``s.launches`` and ``s.clusters`` are set to the decode
+    attention calls a replay runs (the capture itself runs none, so their
+    counts are left as they were). Thread-local capture: the feed's threads
+    may use the card meanwhile."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -279,10 +281,11 @@ def _capture(model: Whisper, s: _Buffers, eot: int) -> torch.cuda.CUDAGraph:
             _step(model, s, eot)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = decode_attention.launches
+    launches, clusters = decode_attention.launches, Counter(decode_attention.clusters)
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         _step(model, s, eot)
-    s.launches, decode_attention.launches = decode_attention.launches - before, before
+    s.launches, decode_attention.launches = decode_attention.launches - launches, launches
+    s.clusters, decode_attention.clusters = decode_attention.clusters - clusters, clusters
     return graph
 
 
@@ -437,6 +440,7 @@ def greedy_decode(
                 else:
                     graph.replay()
                     decode_attention.launches += s.launches
+                    decode_attention.clusters.update(s.clusters)
                 span.n = int(graph is not None)
                 i += 1
                 running = i < max_len - 1 and not bool(s.finished.all())

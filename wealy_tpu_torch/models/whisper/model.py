@@ -39,11 +39,12 @@ JAX model:
 - The incremental step's attention (one token, the decode layout) goes on
   the card to the decode attention kernel (``ops/decode_attention.py``),
   which reads the K/V in their storage dtype with the plain path's
-  roundings. The route is chosen by dtype and head width alone
+  roundings. The route is chosen by dtype, head width and length alone
   (``ops/decode_attention.py::takes``): a bf16 model's step over bf16 or
-  float8 e4m3 K/V always takes the kernel, which raises on a layout it
-  cannot read; float8 e5m2 storage, f32-compute models, head widths other
-  than 64, the prefill, teacher forcing and the CPU take the plain path.
+  float8 e4m3 K/V of every Whisper length always takes the kernel, which
+  raises on a layout it cannot read; float8 e5m2 storage, f32-compute
+  models, head widths other than 64, K/V longer than ``MAX_TK``, the
+  prefill, teacher forcing and the CPU take the plain path.
 
 Tensor parallelism (``parallel/tp.py``): built with a ``tp`` context, an
 attention module holds ``n_head / n`` heads of the ``n`` ranks of the

@@ -8,26 +8,30 @@ dtype (bf16, or float8 e4m3 for the opt-in decode-bandwidth modes) and
 upcasts in registers, with the same roundings: q times the scale rounded to
 the compute dtype, f32 scores and softmax, the probabilities rounded to the
 compute dtype before the product with v, f32 accumulation, the output in the
-compute dtype.
+compute dtype. A call is one launch: a row of Tk positions is one
+thread-block cluster of :func:`cluster_size` blocks, one a ``CHUNK`` of
+positions.
 
 :func:`decode_attention` takes the plain version for a CPU tensor and
 launches the kernel for a CUDA one: q (B, 1, H, 64) bf16, k (pre-scaled) and
 v (B, H, Tk, 64), Tk <= ``MAX_TK``, contiguous, both bf16 or both float8
 e4m3, 16-byte aligned, on q's device; it raises on anything else, and never
 falls back. :func:`takes` is the decode step's choice of route, made by
-dtype and head width alone: operands it sends here that the kernel cannot
+dtype, head width and length: operands it sends here that the kernel cannot
 read are a fault, not a reason for the plain path. ``pos``, a (1,) int64
 device index, makes positions [0, pos] the valid ones (a self-attention
 cache; the position never reaches the host, so the call can be captured in
 a CUDA graph); without it all Tk are (the held cross K/V).
 
-``decode_attention.launches`` counts the kernel's runs: the wrapper's calls
-and, for a captured step, each replay's (``models/whisper/generate.py``
+``decode_attention.launches`` counts the kernel's runs, and
+``decode_attention.clusters`` the same runs by cluster size: the wrapper's
+calls and, for a captured step, each replay's (``models/whisper/generate.py``
 adds those).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -35,19 +39,14 @@ import torch
 from wealy_tpu_torch import _build
 
 HEAD_DIM = 64
-CHUNK = 256  # kChunk: positions a block; a row longer than this takes two kernels
-MAX_TK = 128 * CHUNK  # kMaxSplit chunks a row
+CHUNK = 256  # kChunk: positions a block
+MAX_TK = 8 * CHUNK  # kMaxSplit blocks a cluster, the portable cluster size
 KV_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1}  # storage dtype -> kv_kind
 
 
-def workspace_floats(batch_heads: int, tk: int) -> int:
-    """f32 workspace of a call (the kernel's ``workspace_floats``): none for
-    a row of at most ``CHUNK`` positions (one kernel); else each chunk's
-    scores, (max, sum) and partial output, and a ticket a row."""
-    n_split = -(-tk // CHUNK)
-    if n_split == 1:
-        return 0
-    return batch_heads * n_split * (CHUNK + 2 + HEAD_DIM) + batch_heads
+def cluster_size(tk: int) -> int:
+    """Blocks of a row's cluster: one a ``CHUNK`` of its Tk positions."""
+    return -(-tk // CHUNK)
 
 
 def position_mask(pos: torch.Tensor, tk: int) -> torch.Tensor:
@@ -72,13 +71,14 @@ def _reference_decode_attention(q, k, v, scale: float, mask: Optional[torch.Tens
 
 def takes(q, k) -> bool:
     """Whether a decode step on the card sends these operands to the kernel:
-    bf16 q with bf16 or float8 e4m3 K/V, and the head width of every
-    published Whisper size (64). float8 e5m2 storage, an f32 compute dtype
-    and other head widths (the ``dev`` stand-in's 32) take the plain path;
-    a layout the kernel refuses is left to :func:`decode_attention` to
-    raise on."""
+    bf16 q with bf16 or float8 e4m3 K/V of at most ``MAX_TK`` positions (every
+    Whisper shape: 1500 audio frames, caches of at most 448), and the head
+    width of every published Whisper size (64). float8 e5m2 storage, an f32
+    compute dtype, other head widths (the ``dev`` stand-in's 32) and longer
+    K/V take the plain path; a layout the kernel refuses is left to
+    :func:`decode_attention` to raise on."""
     return (q.is_cuda and q.dtype == torch.bfloat16 and k.dtype in KV_KINDS
-            and q.shape[-1] == HEAD_DIM)
+            and q.shape[-1] == HEAD_DIM and k.shape[2] <= MAX_TK)
 
 
 def _layout_ok(q, k, v, pos) -> bool:
@@ -114,18 +114,17 @@ def _launch(q, k, v, scale: float, pos: Optional[torch.Tensor]):
         )
     B, _, H, Dh = q.shape
     tk = k.shape[2]
-    need = workspace_floats(B * H, tk)
-    workspace = torch.empty(need, dtype=torch.float32, device=q.device) if need else None
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
     _build.check(
         _build.library().wealy_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pos is None else pos.data_ptr(),
-            out.data_ptr(), None if workspace is None else workspace.data_ptr(), B * H, tk, Dh,
-            KV_KINDS[k.dtype], float(scale), _build.stream(q.device),
+            out.data_ptr(), B * H, tk, Dh, KV_KINDS[k.dtype], float(scale),
+            _build.stream(q.device),
         ),
         "decode_attention",
     )
     decode_attention.launches += 1
+    decode_attention.clusters[cluster_size(tk)] += 1
     return out
 
 
@@ -141,3 +140,4 @@ def decode_attention(q, k, v, scale: float, pos: Optional[torch.Tensor] = None):
 
 
 decode_attention.launches = 0
+decode_attention.clusters = Counter()
