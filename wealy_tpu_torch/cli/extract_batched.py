@@ -2,11 +2,22 @@
 ``wealy_tpu.cli.extract_batched``.
 
 The split jobs, one loop (``_split``), pack 30 s chunks from many songs into
-fixed-size device batches, keep the host decode running ahead (a thread pool
-with a bounded, ordered window, behind
-:func:`wealy_tpu_torch.utils.prefetch.prefetch`), and scatter each batch's
-rows back into per-song accumulators that flush to the store (or a ``sink``)
-as soon as a song is complete:
+fixed-size device batches, with three kinds of thread at work:
+
+- the decode threads (``_chunk_stream``: a thread pool with a bounded,
+  ordered window of songs) decode and resample the audio;
+- the feed's thread (``_feed``, behind
+  :func:`wealy_tpu_torch.utils.prefetch.prefetch`) groups the chunks into
+  batches (``_batches``) and pads each into one of a few page-locked host
+  buffers, two batches ahead of the loop;
+- the calling thread makes every CUDA call: the batch's upload, which does
+  not block the host, the device path, and the copy of the batch's outputs
+  back into page-locked memory, which ends in the batch's one sync; it then
+  scatters the batch's rows into per-song accumulators and flushes each
+  song to the store (or a ``sink``) as soon as its last chunk has arrived,
+  before it calls the embed function again.
+
+The two jobs:
 
 - :func:`extract_split_batched`: ``embed_fn(audio (B, 480000)) -> (B, D)``,
   one row per chunk (``x_concat``, ``hs_wealy_concat``);
@@ -16,18 +27,18 @@ as soon as a song is complete:
   ``lengths``.
 
 The decode threads stay on the host (numpy and the native library, which
-releases the GIL); every CUDA call is made on the calling thread, and each
-batch costs one device-to-host copy. The last batch is padded with zero
-rows to ``batch_size``, so the embed function sees one shape.
+releases the GIL). The last batch is padded with zero rows to
+``batch_size``, so the embed function sees one shape.
 
 Each stage is a span of ``utils/profiling.py``: ``audio.load`` (a song's
 decode and resample on a decode thread, its ``n`` the song's chunks),
-``extract.next_batch`` (the loop's wait for its next batch),
-``extract.pad`` (the chunks copied into the batch buffer), ``extract.h2d``
-(the upload), ``whisper.encode`` (mel + encoder, timed on the card too),
-``extract.d2h`` (the batch's sync and copy back) and ``extract.scatter``
-(the song accumulators and the store or sink), all inside the
-``extract.batch`` span of the device call but the first two and the last.
+``extract.next_batch`` (the loop's wait for its next padded batch),
+``extract.pad`` (the chunks copied into the batch buffer, on the feed's
+thread), ``extract.h2d`` (the upload's enqueue), ``whisper.encode`` (mel +
+encoder, timed on the card too), ``extract.d2h`` (the outputs' copies back
+and their wait) and ``extract.scatter`` (the song accumulators and the
+store or sink); of these ``extract.h2d``, ``whisper.encode`` and
+``extract.d2h`` lie inside the ``extract.batch`` span of the device call.
 
 The embed functions of the split jobs and of the query path:
 
@@ -55,6 +66,8 @@ the files are those one process writes.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import itertools
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -99,11 +112,13 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
             yield from chunks_of(version_key, load(version_key))
         return
 
-    from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=n_workers, thread_name_prefix="decode") as pool:
-        pending = deque()
+    pool = ThreadPoolExecutor(max_workers=n_workers, thread_name_prefix="decode")
+    with contextlib.ExitStack() as stack:
+        # closed early: the songs not started are dropped, the running ones waited for
+        stack.callback(pool.shutdown, wait=True, cancel_futures=True)
+        pending = collections.deque()
         it = iter(versions)
 
         def submit_next() -> bool:
@@ -125,9 +140,23 @@ def _chunk_stream(ds, limit: Optional[int], n_workers: int = 1
 
 def _host(out) -> list:
     """A batch's outputs (one, or a tuple or list of them) as numpy, the
-    floating ones in f32 (a bf16 tensor through ``float()``: numpy has no
-    bf16), in one ``extract.d2h`` span. For card tensors the first copy is
-    the batch's one sync."""
+    floating ones in f32 (numpy has no bf16), in one ``extract.d2h`` span.
+
+    A card tensor comes back by a non-blocking copy into page-locked host
+    memory, a floating one cast to f32 on the card first (the bits of
+    ``.float().cpu()``); the copies end in one wait on the card's current
+    stream, the batch's one sync. After it no work that stream queued before
+    the copies is still running: the batch's upload has read its input
+    buffer. Host tensors and arrays take the plain route."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+
+    def fetch(x):
+        if not (isinstance(x, torch.Tensor) and x.is_cuda):
+            return x
+        x = x.detach()
+        x = x.float() if x.is_floating_point() else x
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return host.copy_(x, non_blocking=True)
 
     def numpy(x):
         if isinstance(x, torch.Tensor):
@@ -136,7 +165,11 @@ def _host(out) -> list:
         return x.astype(np.float32, copy=False) if x.dtype.kind == "f" else x
 
     with trace_span("extract.d2h"):
-        return [numpy(x) for x in (out if isinstance(out, (tuple, list)) else (out,))]
+        cards = {x.device for x in outs if isinstance(x, torch.Tensor) and x.is_cuda}
+        staged = [fetch(x) for x in outs]
+        for device in cards:
+            torch.cuda.current_stream(device).synchronize()
+        return [numpy(x) for x in staged]
 
 
 def _schedule(config, metadata, split: str, filename: str, limit, overwrite, skip_fn, mesh):
@@ -167,25 +200,46 @@ def _writer(mesh, save):
     return save if mesh is None or mesh.is_primary else (lambda v, **arrays: None)
 
 
+# batches the feed keeps ready ahead of the loop; the split holds one buffer more
+_AHEAD = 2
+
+
 def _batches(ds, batch_size: int, n_workers: int):
-    """Lists of up to ``batch_size`` stream entries, the last one partial;
-    the consumer's wait for each is an ``extract.next_batch`` span."""
-    stream = prefetch(_chunk_stream(ds, None, n_workers=n_workers), depth=2 * batch_size)
-    while True:
-        with trace_span("extract.next_batch"):
-            batch = list(itertools.islice(stream, batch_size))
-        if not batch:
-            return
-        yield batch
+    """Lists of up to ``batch_size`` stream entries, the last one partial,
+    grouped on the feed's thread (see :func:`_feed`). Closing it stops the
+    decode threads."""
+    with contextlib.closing(_chunk_stream(ds, None, n_workers=n_workers)) as stream:
+        while batch := list(itertools.islice(stream, batch_size)):
+            yield batch
 
 
-def _padded(batch, buf: np.ndarray) -> torch.Tensor:
-    """The batch's chunks in the rows of ``buf``, zero rows after them."""
+def _feed(ds, batch_size: int, n_workers: int, fill: Optional[Callable] = None):
+    """:func:`_batches` run on the feed's thread (a
+    :func:`~wealy_tpu_torch.utils.prefetch.prefetch` worker) ``_AHEAD``
+    batches ahead of the consumer, each through ``fill`` there; the
+    consumer's wait for each item is an ``extract.next_batch`` span.
+    Closing it (an exception of the loop or of the feed, or the loop's end)
+    stops the feed: the feed's thread and the decode threads are joined
+    before the close returns."""
+    items = prefetch(_batches(ds, batch_size, n_workers), depth=_AHEAD, transform=fill)
+    with contextlib.closing(items):
+        while True:
+            with trace_span("extract.next_batch"):
+                item = next(items, None)
+            if item is None:
+                return
+            yield item
+
+
+def _padded(batch, buf: torch.Tensor) -> torch.Tensor:
+    """``buf`` holding the batch's chunks in its first rows and zero rows
+    after them (on the feed's thread)."""
     with trace_span("extract.pad"):
+        rows = buf.numpy()
         for i, (_, _, _, chunk) in enumerate(batch):
-            buf[i] = chunk
-        buf[len(batch):] = 0.0
-    return torch.from_numpy(buf)
+            rows[i] = chunk
+        rows[len(batch):] = 0.0
+    return buf
 
 
 def _audit(config, store, metadata, filename: str, sink, mesh) -> None:
@@ -203,7 +257,18 @@ def _split(config, metadata, split: str, fn: Callable, finish: Callable, *, kind
     """The split loop of both jobs: ``fn``'s outputs for each padded batch
     as per-row host arrays, kept per song until its last chunk arrives, when
     ``save(version_key, **finish(*outputs))`` stores it, each output a tuple
-    over the song's chunks in order."""
+    over the song's chunks in order.
+
+    The feed pads each batch on its own thread into one of ``_AHEAD + 1``
+    (batch_size, N_SAMPLES) f32 host buffers, page-locked when CUDA is
+    available, and ``fn`` gets that buffer as a CPU tensor. A buffer goes
+    back to the pool once its batch's outputs are on the host (``_host``),
+    so no copy of the card's still reads it when the feed fills it again;
+    the feed runs ``_AHEAD`` batches ahead, so one is always free. The
+    loop's thread calls ``fn``, brings the outputs back and stores the songs
+    the batch completed before it calls ``fn`` again. An exception of the
+    loop, of ``fn`` or of the feed stops the feed: its thread and the decode
+    threads are joined before the exception leaves."""
     filename = f"{kind}.npz"
     store, ds, skipped = _schedule(config, metadata, split, filename, limit, overwrite, skip_fn,
                                    mesh)
@@ -211,22 +276,28 @@ def _split(config, metadata, split: str, fn: Callable, finish: Callable, *, kind
     meter = ThroughputMeter(window=20, n_chips=1 if mesh is None else mesh.world_size)
     accs: Dict[str, list] = {}  # per song, each chunk's row of outputs or None
     done: List[str] = []
-    buf = np.zeros((batch_size, N_SAMPLES), np.float32)
+    free = collections.deque(torch.empty((batch_size, N_SAMPLES), dtype=torch.float32,
+                                         pin_memory=torch.cuda.is_available())
+                             for _ in range(_AHEAD + 1))
+    feed = _feed(ds, batch_size, n_workers,
+                 fill=lambda batch: (batch, _padded(batch, free.popleft())))
 
-    for batch in _batches(ds, batch_size, n_workers):
-        with trace_span("extract.batch"):
-            outs = _host(fn(_padded(batch, buf)))
-        meter.tick(len(batch))
-        with trace_span("extract.scatter"):
-            for (version_key, chunk_idx, n_chunks, _), *row in zip(batch, *outs):
-                acc = accs.setdefault(version_key, [None] * n_chunks)
-                acc[chunk_idx] = row
-                if None not in acc:
-                    save(version_key, **finish(*zip(*acc)))
-                    done.append(version_key)
-                    del accs[version_key]
-        if done and len(done) % 200 == 0:
-            log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
+    with contextlib.closing(feed):
+        for batch, audio in feed:
+            with trace_span("extract.batch"):
+                outs = _host(fn(audio))
+            free.append(audio)
+            meter.tick(len(batch))
+            with trace_span("extract.scatter"):
+                for (version_key, chunk_idx, n_chunks, _), *row in zip(batch, *outs):
+                    acc = accs.setdefault(version_key, [None] * n_chunks)
+                    acc[chunk_idx] = row
+                    if None not in acc:
+                        save(version_key, **finish(*zip(*acc)))
+                        done.append(version_key)
+                        del accs[version_key]
+            if done and len(done) % 200 == 0:
+                log(f"[extract-batched] {len(done)} songs, {meter.items_per_sec:.0f} chunks/s")
 
     _audit(config, store, metadata, filename, sink, mesh)
     # a partly filled accumulator is a fault of this job: reported, not stored
@@ -296,13 +367,10 @@ def extract_split_batched_decoder(
     mesh ``decode_fn`` runs on (see :func:`make_decoder_embed_fn`); only
     its primary rank writes.
     """
-    from wealy_tpu_torch.models.whisper.extract import flatten_decoder_sequence
-
     def finish(hidden, lengths):
-        hid_all, lens = np.stack(hidden), np.array(lengths, np.int32)  # (n_chunks, max_len, D)
-        if kind.startswith("hs_last_seq"):
-            return {"embeddings": flatten_decoder_sequence(hid_all, lens)}
-        return {"embeddings": hid_all, "lengths": lens}
+        if kind.startswith("hs_last_seq"):  # the valid rows copied once, end to end
+            return {"embeddings": np.concatenate([h[:int(n)] for h, n in zip(hidden, lengths)])}
+        return {"embeddings": np.stack(hidden), "lengths": np.array(lengths, np.int32)}
 
     return _split(config, metadata, split, decode_fn, finish, kind=kind, batch_size=batch_size,
                   mesh=mesh, limit=limit, overwrite=overwrite, n_workers=n_workers, log=log,
@@ -310,9 +378,14 @@ def extract_split_batched_decoder(
 
 
 def _chunks(audio, device) -> torch.Tensor:
-    """The batch on ``device``: the ``extract.h2d`` span."""
+    """The batch on ``device``: the ``extract.h2d`` span. A page-locked
+    host batch (the split's buffers, or row slices of them on a mesh) goes
+    up by a non-blocking copy on the current stream, so the host goes on to
+    launch the device path at once; any other goes by the plain copy."""
+    device = torch.device(device)
     with trace_span("extract.h2d"):
-        return torch.as_tensor(audio, dtype=torch.float32).to(device)
+        x = torch.as_tensor(audio, dtype=torch.float32)
+        return x.to(device, non_blocking=device.type == "cuda" and x.is_pinned())
 
 
 def make_encoder_embed_fn(config, hf_checkpoint: Optional[str] = None, quant_int8: bool = False,

@@ -40,7 +40,7 @@ import torch
 from wealy_tpu_torch import resolve_device
 from wealy_tpu_torch.audio.fused_mel import log_mel_spectrogram_fused
 from wealy_tpu_torch.cli.extract import _SongFailure, load_whisper_model
-from wealy_tpu_torch.cli.extract_batched import _batches, _chunks
+from wealy_tpu_torch.cli.extract_batched import _chunks, _feed
 from wealy_tpu_torch.data.audio_dataset import AudioDataset
 from wealy_tpu_torch.data.tokenizer import ByteLevelBPE
 from wealy_tpu_torch.data.transcription import TranscriptionCache, TranscriptionValidator
@@ -266,7 +266,7 @@ def transcribe_split_batched(
                 out_path(version_key).write_text(text.strip() + "\n")
             done.append(version_key)
 
-    for batch in _batches(ds, batch_size, n_workers):
+    for batch in _feed(ds, batch_size, n_workers):
         if transcribe_fn is None:
             transcribe_fn = make_transcribe_fn(
                 config, hf_checkpoint, language=language, max_len=max_len, mesh=mesh,

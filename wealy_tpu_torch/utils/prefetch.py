@@ -1,8 +1,9 @@
 """Background-thread prefetching for the host -> device input pipeline, the
 counterpart of ``wealy_tpu.utils.prefetch``: one worker thread keeps
 ``depth`` items collated (and placed, by ``transform``) ahead of the
-consumer. A plain ``.to(device)`` in ``transform`` is the placement; pinned
-memory and copy streams are later work.
+consumer. The split jobs' ``transform`` pads each batch into a page-locked
+host buffer, which the device call uploads without blocking the host
+(``cli/extract_batched.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ def prefetch(
 ) -> Iterator:
     """Iterate ``iterable`` on a background thread, ``depth`` items ahead,
     in order. ``transform`` runs on that thread. An exception of the worker
-    is raised to the consumer at the item where it happened; leaving the
-    loop early cancels the items not yet started."""
+    is raised to the consumer at the item where it happened. Closing the
+    iterator (leaving the loop early) cancels the items not yet started,
+    waits for the one running and then closes ``iterable`` where it has a
+    ``close``: no thread of the prefetch outlives the close."""
     source = iter(iterable)
 
     def produce():
@@ -33,8 +36,10 @@ def prefetch(
         return transform(item)
 
     with contextlib.ExitStack() as stack:
+        if hasattr(source, "close"):
+            stack.callback(source.close)  # after the worker has stopped: it runs the source
         pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefetch")
-        stack.callback(pool.shutdown, wait=False, cancel_futures=True)
+        stack.callback(pool.shutdown, wait=True, cancel_futures=True)
         pending = collections.deque(pool.submit(produce) for _ in range(max(1, depth)))
         while True:
             item = pending.popleft().result()
